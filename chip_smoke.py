@@ -12,9 +12,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   4. kernel B2 (`fused_merged_march`) likewise, fed B1's raw output
   5. a small-config frame on the card (kernels) against the same frame on the
      CPU (plain versions)
-  6. the main path: the flagship generator with seeded random weights, the
+  6. the frame loop: the flagship generator with seeded random weights, the
      avatar precomputed once, then warm-up and timed 512² reenactment frames
-     through `synthesis_withTexture`; each kernel must launch once per frame
+     through `synthesis_withTexture`; B1 and B2 must launch once per frame
+  7. load kernel B3 and its transpose (`csrc/plane_sample.cu`, built in
+     phase 2 beside `fused_render.cu`, each by its own nvcc)
+  8. B3 (float32 and bf16 payloads) and its transpose against their plain
+     versions at the shapes of a real full-width student render (recorded
+     through the renderer), with `F.grid_sample`'s forward and backward timed
+     as the library yardstick, and the channels-last copy of the planes
+  9. a small-config e4e training step on the card against the same step on
+     the CPU: losses and encoder gradients
+ 10. the e4e training path: the float32 flagship generator (frozen) with an
+     IR-SE-50 e4e encoder and the latent discriminator, seeded random
+     weights, B=1 synthetic 512² batches, `make_e4e_grad_programs` with the
+     Igen target on B3 (fp32) and the student renders on B3 + its transpose;
+     warm-up and timed steps; B3 must launch 6 times and its transpose 4
+     times per step
 The last two lines are the kernels' JSON record and `{"ok": true, ...}`.
 """
 
@@ -24,6 +38,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -31,6 +46,11 @@ sys.path.insert(0, REPO)
 N_WARMUP = 3
 N_FRAMES = 20
 N_TIMED = 15  # CUDA-event timings per kernel / plain version (median)
+N_E4E_WARMUP = 2
+N_E4E_STEPS = 5
+# B3 launches per e4e step: two render passes (coarse, fine) of the Igen
+# target and of both students; transpose launches: both passes of both students
+B3_PER_STEP, B3T_PER_STEP = 6, 4
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
@@ -68,6 +88,19 @@ def cuda_ms(fn, n=N_TIMED, warmup=3):
     return times[len(times) // 2]
 
 
+CU_SOURCES = ("fused_render", "plane_sample")
+
+
+def print_build(tag, name):
+    from invertavatar_torch.utils import cuda_build
+
+    secs, report = cuda_build.BUILD_INFO[name]
+    print(f"{tag} csrc/{name}.cu: nvcc {secs:.2f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"{tag}   ptxas: {line.strip()}")
+
+
 def bound(bytes_, flops):
     t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -95,6 +128,245 @@ def recording(module, name, calls):
         setattr(module, name, orig)
 
 
+def e4e_phases(torch, dev, card, ps, rmod):
+    """Phases 7-10; returns the kernel records of B3 and its transpose."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from invertavatar_torch.flagship import example_inputs, flagship_inversion_net
+    from invertavatar_torch.models.encoders import LatentCodesDiscriminator
+    from invertavatar_torch.train.fast_render import grad_overrides
+    from invertavatar_torch.train.inversion import InversionLossWeights
+    from invertavatar_torch.train.loop_inversion import (e4e_trainable, make_e4e_grad_programs,
+                                                         masked_adam)
+    from invertavatar_torch.train.state import TrainState
+    from invertavatar_torch.utils import cuda_build
+
+    # the validation run's weights: train_e4e_real.yaml with LPIPS and ID off
+    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, w_delta=0.001, w_regular=0.0,
+                                   w_discriminator=0.01, raw_l1=1.0, tri=0.001)
+
+    def l1(a, b):
+        return (a - b).abs().mean()
+
+    def batch_on(d, z_dim, res, seed=0):
+        z_np, c_np, uvc_np = example_inputs(1, seed=seed)
+        img = np.random.RandomState(seed).uniform(-1, 1, (1, 3, res, res)).astype(np.float32)
+        return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c_np).to(d),
+                "v": {"uvcoords_image": torch.from_numpy(uvc_np).to(d)},
+                "z": torch.from_numpy(z_np[:, :z_dim]).to(d)}
+
+    def states(net):
+        wd = LatentCodesDiscriminator().to(next(net.parameters()).device)
+        return (TrainState(net, masked_adam(net, 1e-4, e4e_trainable)),
+                TrainState(wd, torch.optim.Adam(wd.parameters(), lr=2e-5)))
+
+    # ---------------------------------------------------------------- phase 7
+    cuda_build.load("plane_sample")
+    print_build("[7]", "plane_sample")
+
+    # ---------------------------------------------------------------- phase 8
+    t0 = time.perf_counter()
+    net = flagship_inversion_net(device=dev)
+    batch = batch_on(dev, 512, 512)
+    torch.cuda.synchronize()
+    print(f"[8] e4e network built (float32 flagship generator + IR-SE-50 encoder), weights "
+          f"filled in {time.perf_counter() - t0:.2f} s")
+    calls = []
+    G = net.generator
+    with torch.no_grad(), recording(rmod, "sample_planes_windowed_cvjp", calls):
+        ws = net.encode(batch["image"])
+        tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+        static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
+        G.synthesis_withTexture(ws, tex, batch["c"], batch["v"], static_feats=static,
+                                noise_mode="const", rendering_overrides=grad_overrides("pallas"))
+    torch.cuda.synchronize()
+    if len(calls) != 2:
+        fail(f"a student render made {len(calls)} B3 calls, expected 2 (coarse, fine)")
+    print(f"[8] student render recorded: planes {tuple(calls[0][0][0].shape)}, grids "
+          f"{[tuple(c[0][1].shape) for c in calls]}")
+    records = []
+    with torch.no_grad():
+        # the channels-last copy the renderer makes once per render
+        planes_nc = G.backbone.synthesis(ws, return_list=True, noise_mode="const")[-1]
+        planes_nc = planes_nc.reshape(1, 3, -1, *planes_nc.shape[-2:]).float()
+        copy_ms = cuda_ms(lambda: planes_nc.permute(0, 1, 3, 4, 2).reshape(
+            3, *planes_nc.shape[-2:], planes_nc.shape[2]).contiguous())
+        print(f"[8] [B,3,C,H,W] -> [3B,H,W,C] copy of the planes: {copy_ms:.4f} ms "
+              f"({planes_nc.numel() * 8 / 1e6:.1f} MB moved) on {card}")
+        for (args, _, out), label in zip(calls, ("coarse", "fine")):
+            planes, grid = args
+            N, H, W, C = planes.shape
+            R, S = grid.shape[1], grid.shape[2]
+            n_pts = N * R * S
+            planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
+            # forward, float32 payload (the training route) and bf16 (the eval
+            # route). Scale of the rounding: m = Σ_taps w·|v|, the sample of |planes|.
+            m = ps.sample_planes_windowed_reference(planes.abs(), grid)
+            errs = {}
+            for dt, rel in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
+                k = ps.sample_planes_windowed(planes, grid, dt)
+                p = ps.sample_planes_windowed_reference(planes, grid, dt)
+                e = (k.float() - p.float()).abs()
+                bad = int((e > p.float().abs() * rel + 2e-6 * m).sum())
+                errs[dt] = e.max().item()
+                print(f"[8] B3 {label} S={S} {str(dt)[6:]}: max|k-p| {e.max().item():.3e} mean "
+                      f"{e.mean().item():.3e}; tolerance |k-p| <= {rel:.3g}|p| + 2e-6·Σw|v| "
+                      f"(fused multiply-adds; bf16: one ulp of the output), violations {bad}")
+                if bad or not torch.isfinite(k.float()).all():
+                    fail(f"B3 ({dt}) disagrees with its plain version")
+            if not torch.equal(out, ps.sample_planes_windowed(planes, grid)):
+                fail("the recorded student render's B3 output differs from a fresh launch")
+            f_ms = cuda_ms(lambda: ps.sample_planes_windowed(planes, grid))
+            f_plain = cuda_ms(lambda: ps.sample_planes_windowed_reference(planes, grid))
+            f_lib = cuda_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
+                                                  padding_mode="zeros", align_corners=False))
+            bf_ms = cuda_ms(lambda: ps.sample_planes_windowed(planes, grid, torch.bfloat16))
+            f_bytes = grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4
+            f_bound, f_by = bound(f_bytes, n_pts * 4 * C * 2)
+            print(f"[8] B3 {label} fp32 kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
+                  f"F.grid_sample {f_lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}; "
+                  f"{f_bytes / 1e6:.1f} MB); bf16 payload kernel {bf_ms:.4f} ms on {card}")
+            # backward: the transpose, against its plain version and grid_sample's backward
+            cot = torch.randn((N, R, S, C), device=dev)
+            k = ps.windowed_sample_transpose(grid, cot, planes.shape)
+            p = ps.windowed_sample_transpose_reference(grid, cot, planes.shape)
+            m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes.shape)
+            e = (k - p).abs()
+            bad = int((e > 1e-5 * m + 1e-7).sum())
+            print(f"[8] B3 transpose {label} S={S}: max|k-p| {e.max().item():.3e} mean "
+                  f"{e.mean().item():.3e}; tolerance |k-p| <= 1e-5·Σw|cot| + 1e-7 (float32 "
+                  f"atomics in no fixed order), violations {bad}")
+            if bad or not torch.isfinite(k).all():
+                fail("the B3 transpose disagrees with its plain version")
+            cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
+            b_ms = cuda_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape))
+            b_plain = cuda_ms(lambda: ps.windowed_sample_transpose_reference(grid, cot,
+                                                                            planes.shape))
+            b_lib = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot_nchw, planes_nchw, grid, 0, 0, False, [True, False]))
+            b_bytes = grid.numel() * 4 + cot.numel() * 4 + planes.numel() * 4
+            b_bound, b_by = bound(b_bytes, n_pts * 4 * C * 2)
+            print(f"[8] B3 transpose {label} kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, "
+                  f"grid_sample backward {b_lib:.4f} ms, bound {b_bound:.4f} ms ({b_by}; "
+                  f"{b_bytes / 1e6:.1f} MB) on {card}")
+            if label == "coarse":  # the JSON record holds the S=40 pass
+                records = [
+                    dict(name="plane_sample", route="cuda",
+                         source="invertavatar_torch/csrc/plane_sample.cu",
+                         replaces="invertavatar_tpu/ops/pallas_plane_sample.py:39",
+                         max_abs_err=errs[torch.float32], ms=f_ms, plain_ms=f_plain,
+                         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib),
+                    dict(name="plane_sample_transpose", route="cuda",
+                         source="invertavatar_torch/csrc/plane_sample.cu",
+                         replaces="invertavatar_tpu/ops/plane_sample.py:170",
+                         max_abs_err=e.max().item(), ms=b_ms, plain_ms=b_plain,
+                         bound_ms=b_bound, bound_by=b_by, library_ms=b_lib)]
+    del calls, tex, static, ws, planes_nc
+
+    # ---------------------------------------------------------------- phase 9
+    from invertavatar_torch.flagship import init_flagship
+
+    small_rk = {"superresolution_module": "x.SuperresolutionHybrid2X",
+                "c_gen_conditioning_zero": False, "c_scale": 1.0,
+                "superresolution_noise_mode": "none", "decoder_lr_mul": 1.0,
+                "sr_antialias": True, "depth_resolution": 6, "depth_resolution_importance": 6,
+                "box_warp": 1.0}
+    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,
+                 rendering_kwargs=small_rk, neural_rendering_resolution=32, channel_base=1024,
+                 channel_max=64, map_num_layers=2)
+    from invertavatar_torch.models.encoders import InversionNet
+
+    torch.manual_seed(1)
+    net_cpu = InversionNet(small, trunk_layers_n=8)
+    init_flagship(net_cpu.generator, seed=1)
+    net_gpu = InversionNet(small, trunk_layers_n=8).to(dev)
+    net_gpu.load_state_dict(net_cpu.state_dict())
+    wd_init = LatentCodesDiscriminator().state_dict()
+    results = []
+    for n, d in ((net_gpu, dev), (net_cpu, torch.device("cpu"))):
+        st, wst = states(n)
+        wst.module.load_state_dict(wd_init)
+        step = make_e4e_grad_programs(n, l1, None, weights, fast_igen_target="exact",
+                                      fast_grad="pallas")
+        aux = step(st, wst, batch_on(d, 32, 256, seed=1), do_wd_reg=True)
+        grads = {k: p.grad.detach().cpu() for k, p in n.named_parameters()
+                 if p.grad is not None and k.startswith("encoder.")}
+        results.append(({k: float(v) for k, v in aux.items()}, grads))
+    (aux_g, grad_g), (aux_c, grad_c) = results
+    # float32 sums in other orders (cuDNN, the transpose's atomics) on both
+    # renders and ~40 layers of backward: losses to 1e-3 relative (+1e-7 for
+    # raw_l1, itself ~1e-7), gradients to 1e-4 of the encoder gradient's
+    # largest entry (the L1 terms of nearly equal renders have gradients whose
+    # signs are float32 noise, so a tensor's own scale is no yardstick)
+    bad = [k for k in aux_c if not abs(aux_g[k] - aux_c[k]) <= 1e-3 * abs(aux_c[k]) + 1e-7]
+    for k in sorted(aux_c):
+        print(f"[9] small e4e step {k}: card {aux_g[k]:.7g} CPU {aux_c[k]:.7g}")
+    if sorted(aux_g) != sorted(aux_c) or bad:
+        fail(f"the small e4e step on the card disagrees with the CPU on {bad}")
+    scale = max(g.abs().max().item() for g in grad_c.values())
+    worst = {k: (grad_g[k] - grad_c[k]).abs().max().item() / scale for k in grad_c}
+    for k in sorted(worst, key=worst.get)[-5:]:
+        print(f"[9]   grad {k}: max|card-cpu| = {worst[k]:.3e} of the largest encoder gradient "
+              f"entry {scale:.3e} (< 1e-4)")
+    if sorted(grad_g) != sorted(grad_c) or not max(worst.values()) < 1e-4:
+        fail("the small e4e step's encoder gradients differ between card and CPU")
+    del net_cpu, net_gpu, results
+
+    # --------------------------------------------------------------- phase 10
+    state, wd_state = states(net)
+    step = make_e4e_grad_programs(net, l1, None, weights, fast_igen_target="exact",
+                                  fast_grad="pallas")
+    gen0 = [p.detach().clone() for p in net.generator.parameters()]
+    enc0 = [p.detach().clone() for p in net.encoder.parameters()]
+    wd0 = [p.detach().clone() for p in wd_state.module.parameters()]
+    step_idx = 0
+    for _ in range(N_E4E_WARMUP):
+        step(state, wd_state, batch, do_wd_reg=step_idx % 16 == 0)
+        step_idx += 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ps.sample_planes_windowed.launches = 0
+    ps.windowed_sample_transpose.launches = 0
+    t0 = time.perf_counter()
+    auxes = []
+    for _ in range(N_E4E_STEPS):
+        auxes.append(step(state, wd_state, batch, do_wd_reg=step_idx % 16 == 0))
+        step_idx += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"plane_sample": ps.sample_planes_windowed.launches,
+                "plane_sample_transpose": ps.windowed_sample_transpose.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = dt / N_E4E_STEPS * 1e3
+    print(f"[10] e4e step (B=1, 512², float32 flagship generator, IR-SE-50 encoder, "
+          f"Igen target on B3 fp32, students on B3 + transpose): {N_E4E_STEPS} steps after "
+          f"{N_E4E_WARMUP} warm-up, {ms:.3f} ms/step (host clock); peak memory "
+          f"{peak:.3f} GiB on {card}; launches {launches}")
+    for i, aux in enumerate(auxes):
+        vals = {k: float(v) for k, v in aux.items()}
+        print(f"[10]   step {N_E4E_WARMUP + i}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail("an e4e step gave a non-finite loss")
+    moved = {
+        "encoder": max((a - p).abs().max().item() for a, p in zip(enc0, net.encoder.parameters())),
+        "generator": max((a - p).abs().max().item()
+                         for a, p in zip(gen0, net.generator.parameters())),
+        "latent discriminator": max((a - p).abs().max().item()
+                                    for a, p in zip(wd0, wd_state.module.parameters())),
+    }
+    print(f"[10] largest parameter change over {N_E4E_WARMUP + N_E4E_STEPS} steps: {moved}")
+    if not (moved["encoder"] > 0 and moved["generator"] == 0 and moved["latent discriminator"] > 0):
+        fail("the encoder and the latent discriminator must move and the generator must not")
+    expect = {"plane_sample": B3_PER_STEP * N_E4E_STEPS,
+              "plane_sample_transpose": B3T_PER_STEP * N_E4E_STEPS}
+    if launches != expect:
+        fail(f"B3 launches {launches} in {N_E4E_STEPS} e4e steps, expected {expect}")
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    return records
+
+
 def main():
     import torch
 
@@ -107,6 +379,7 @@ def main():
                                                  flagship_generator, init_flagship)
         from invertavatar_torch.models.triplane import OSGDecoder, TriPlaneGenerator
         from invertavatar_torch.ops import fused_render as fr
+        from invertavatar_torch.ops import plane_sample as ps
         from invertavatar_torch.render import renderer as rmod
         from invertavatar_torch.render.ray_sampler import sample_rays
         from invertavatar_torch.utils import cuda_build
@@ -127,13 +400,12 @@ def main():
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(CU_SOURCES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(cuda_build.build, CU_SOURCES))
+    print(f"[2] built {', '.join(f'csrc/{n}.cu' for n in CU_SOURCES)} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
     cuda_build.load("fused_render")
-    secs, report = cuda_build.BUILD_INFO["fused_render"]
-    print(f"[2] built csrc/fused_render.cu in {secs:.2f} s (load total "
-          f"{time.perf_counter() - t0:.2f} s)")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[2]   ptxas: {line.strip()}")
+    print_build("[2]", "fused_render")
 
     # ------------------------------------------------------------- phases 3-4
     rk = dict(FLAGSHIP_RENDERING_KWARGS)
@@ -292,9 +564,14 @@ def main():
         if k["launches"] != N_FRAMES:
             fail(f"{k['name']} launched {k['launches']} times in {N_FRAMES} frames")
     ms = dt / N_FRAMES * 1e3
-    print(f"[6] main path: {N_FRAMES} frames of [1,3,512,512], {ms:.3f} ms/frame, "
+    print(f"[6] frame loop: {N_FRAMES} frames of [1,3,512,512], {ms:.3f} ms/frame, "
           f"{1e3 / ms:.3f} frames/s (host clock, B=1) on {card}; launches {launches}; "
           f"image mean {img.float().mean().item():.4f} std {img.float().std().item():.4f}")
+
+    del G, static, tex, cache, tex_cat
+    torch.cuda.empty_cache()
+
+    kernels += e4e_phases(torch, dev, card, ps, rmod)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

@@ -1,0 +1,198 @@
+// Structured tri-plane sampling (kernel B3) and its transpose for Hopper
+// (sm_90a), bound with ctypes.
+//
+// `sample_kernel` replaces the Pallas kernel
+//    invertavatar_tpu/ops/pallas_plane_sample.py:_kernel (sample_planes_windowed_pallas).
+// `transpose_kernel` replaces the XLA transpose
+//    invertavatar_tpu/ops/plane_sample.py:windowed_sample_transpose (B3's backward).
+//
+// What they compute (see invertavatar_torch/ops/plane_sample.py for the plain
+// PyTorch versions they are held against): planes [N, H, W, C] channels-last,
+// points grid [N, M, 2] plane-space xy in [-1, 1] (align_corners=False).
+//   forward:  out[n, m, :] = sum over the four bilinear taps of w_tap * plane_n[tap, :],
+//             taps outside the plane are zero; float32 sums, output in the
+//             payload's dtype (float32 or bfloat16).
+//   backward: d_plane[n, tap, :] += w_tap * cot[n, m, :] for every point, as
+//             float32 atomics into a zeroed buffer (the sum order is not
+//             deterministic).
+// The TPU kernel builds tent matrices over a texel window per (ray tile,
+// stratum) block and contracts them on the MXU, because TPU gathers are slow;
+// it drops taps outside the window. Here each point gathers its own four taps,
+// so there is no window and no such drop.
+//
+// Thread layout: C / VEC threads per point, each owning VEC channels = 16
+// bytes of payload (4 float32 or 8 bfloat16), so the threads of one point read
+// a tap's C-channel row as one contiguous segment and write the output row
+// likewise: every load and store is a 16-byte vector, coalesced across the
+// point's threads. One launch covers all N planes of a render pass.
+//
+// What bounds them on an H100 at the e4e shapes (N = 3 planes of 256² x 32,
+// 128² rays, 40 coarse or 24 fine samples): bytes. The forward at S=40 writes
+// 252 MB of float32 features and reads 16 MB of grid and 25 MB of planes
+// (about 0.087 ms at 3.35 TB/s) for ~0.5 GFLOP. The backward reads the 252 MB
+// cotangent and 16 MB of grid and zero-fills and writes 25 MB of d-planes, but
+// its ~250 M float32 atomics land on the few hundred thousand texels of the
+// face region, so it waits on same-address atomic serialisation in L2 rather
+// than on device memory; a shared-memory window accumulation would cut that
+// and is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// The four bilinear taps of a point: flat texel index (-1 outside the plane)
+// and weight. The coordinate transform is rounded step by step (no fused
+// multiply-add) to match the plain version's float32 arithmetic.
+__device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, int (&idx)[4],
+                                              float (&w)[4]) {
+  const float gx = __fsub_rn(__fmul_rn(__fadd_rn(p.x, 1.0f), W * 0.5f), 0.5f);
+  const float gy = __fsub_rn(__fmul_rn(__fadd_rn(p.y, 1.0f), H * 0.5f), 0.5f);
+  const float x0f = floorf(gx), y0f = floorf(gy);
+  const float wx = gx - x0f, wy = gy - y0f;
+  w[0] = (1.0f - wx) * (1.0f - wy);
+  w[1] = wx * (1.0f - wy);
+  w[2] = (1.0f - wx) * wy;
+  w[3] = wx * wy;
+  // coordinates far outside the plane (or NaN) would overflow int: no taps
+  const bool finite = fabsf(x0f) < 1e8f && fabsf(y0f) < 1e8f;
+  const int x0 = finite ? (int)x0f : -2, y0 = finite ? (int)y0f : -2;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int y = y0 + (k >> 1), x = x0 + (k & 1);
+    idx[k] = (finite && y >= 0 && y < H && x >= 0 && x < W) ? y * W + x : -1;
+  }
+}
+
+// 16 bytes of payload <-> VEC float32 values.
+__device__ __forceinline__ void unpack(const uint4 q, float (&v)[4]) {
+  v[0] = __uint_as_float(q.x);
+  v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z);
+  v[3] = __uint_as_float(q.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4 q, float (&v)[8]) {
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(words[k] << 16);
+    v[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  uint32_t words[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]));
+    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1]));
+    words[k] = lo | (hi << 16);
+  }
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// VEC = channels per thread: 4 for a float32 payload, 8 for bfloat16.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    sample_kernel(const uint4* __restrict__ planes, const float2* __restrict__ grid,
+                  uint4* __restrict__ out, int H, int W, int C, long long M,
+                  long long total) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int vecs = C / VEC;  // 16-byte vectors per texel row
+  const long long point = t / vecs;
+  const int lane = (int)(t - point * vecs);
+  const long long n = point / M;
+
+  int idx[4];
+  float w[4];
+  bilinear_taps(grid[point], H, W, idx, w);
+  float acc[VEC];
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) acc[c] = 0.0f;
+  const uint4* plane = planes + n * H * W * vecs + lane;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (idx[k] < 0) continue;  // zeros padding
+    float v[VEC];
+    unpack(__ldg(plane + (long long)idx[k] * vecs), v);
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[c] += w[k] * v[c];
+  }
+  out[point * vecs + lane] = pack(acc);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    transpose_kernel(const float2* __restrict__ grid, const float4* __restrict__ cot,
+                     float* __restrict__ d_planes, int H, int W, int C, long long M,
+                     long long total) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int vecs = C / 4;
+  const long long point = t / vecs;
+  const int lane = (int)(t - point * vecs);
+  const long long n = point / M;
+
+  int idx[4];
+  float w[4];
+  bilinear_taps(grid[point], H, W, idx, w);
+  const float4 g = cot[point * vecs + lane];
+  float* plane = d_planes + n * H * W * C + lane * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (idx[k] < 0) continue;
+    float* dst = plane + (long long)idx[k] * C;
+    atomicAdd(dst + 0, w[k] * g.x);
+    atomicAdd(dst + 1, w[k] * g.y);
+    atomicAdd(dst + 2, w[k] * g.z);
+    atomicAdd(dst + 3, w[k] * g.w);
+  }
+}
+
+unsigned int blocks_for(long long threads) {
+  return (unsigned int)((threads + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// payload: 0 = float32 planes and output, 1 = bfloat16. C must be a multiple
+// of 8; every pointer 16-byte aligned (the wrapper checks both). Returns the
+// launch's cudaGetLastError().
+extern "C" int plane_sample_launch(const void* planes, const void* grid, void* out, int N,
+                                   int H, int W, int C, long long M, int payload,
+                                   void* stream) {
+  const int vec = payload == 0 ? 4 : 8;
+  const long long total = (long long)N * M * (C / vec);
+  if (total == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const uint4*>(planes);
+  const auto* g = static_cast<const float2*>(grid);
+  auto* o = static_cast<uint4*>(out);
+  if (payload == 0) {
+    sample_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(p, g, o, H, W, C, M, total);
+  } else {
+    sample_kernel<8><<<blocks_for(total), kThreads, 0, s>>>(p, g, o, H, W, C, M, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+// d_planes must be zeroed float32 [N, H, W, C]; cot float32 [N, M, C].
+extern "C" int plane_sample_transpose_launch(const void* grid, const void* cot, void* d_planes,
+                                             int N, int H, int W, int C, long long M,
+                                             void* stream) {
+  const long long total = (long long)N * M * (C / 4);
+  if (total == 0) return 0;
+  transpose_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(grid), static_cast<const float4*>(cot),
+      static_cast<float*>(d_planes), H, W, C, M, total);
+  return (int)cudaGetLastError();
+}

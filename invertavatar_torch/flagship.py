@@ -44,20 +44,43 @@ FLAGSHIP_RENDERING_KWARGS = {
 }
 
 
+def flagship_config(neural_rendering_resolution: int = 128, num_fp16_res: int = 4,
+                    sr_num_fp16_res: int = 4) -> dict:
+    """`TriPlaneGenerator` keyword arguments of the flagship. The backbones'
+    top `num_fp16_res` resolutions and the SR blocks' top `sr_num_fp16_res`
+    compute in bfloat16; 0 for both is the float32 generator that training
+    runs (the JAX `GEN_CFG` defaults)."""
+    return dict(z_dim=512, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
+                sr_num_fp16_res=sr_num_fp16_res, rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS),
+                neural_rendering_resolution=neural_rendering_resolution, channel_base=32768,
+                channel_max=512, num_fp16_res=num_fp16_res, conv_clamp=256.0, map_num_layers=2)
+
+
 def flagship_generator(neural_rendering_resolution: int = 128, num_fp16_res: int = 4,
-                       device="cuda") -> TriPlaneGenerator:
-    """The flagship generator in eval mode on `device` (CUDA by default; raises
-    if CUDA is asked for and absent). The backbones' top `num_fp16_res`
-    resolutions and the SR blocks compute in bfloat16; pass num_fp16_res=0 for
-    float32 backbones."""
+                       sr_num_fp16_res: int = 4, device="cuda") -> TriPlaneGenerator:
+    """The flagship generator (`flagship_config`) in eval mode on `device`
+    (CUDA by default; raises if CUDA is asked for and absent)."""
     device = resolve_device(device)
     with torch.device(device):
-        G = TriPlaneGenerator(
-            z_dim=512, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
-            sr_num_fp16_res=4, rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS),
-            neural_rendering_resolution=neural_rendering_resolution, channel_base=32768,
-            channel_max=512, num_fp16_res=num_fp16_res, conv_clamp=256.0, map_num_layers=2)
+        G = TriPlaneGenerator(**flagship_config(neural_rendering_resolution, num_fp16_res,
+                                                sr_num_fp16_res))
     return G.eval()
+
+
+def flagship_inversion_net(trunk_layers_n: int = 50, seed: int = 0, device="cuda"):
+    """The e4e stage's network on `device` (CUDA by default): the float32
+    flagship generator filled by `init_flagship(seed)` and an IR-SE
+    `Encoder4Editing` (`trunk_layers_n=8`: the tiny test trunk) with torch's
+    default initialisation drawn after `torch.manual_seed(seed)`."""
+    from .models.encoders import InversionNet
+
+    device = resolve_device(device)
+    torch.manual_seed(seed)
+    with torch.device(device):
+        net = InversionNet(flagship_config(num_fp16_res=0, sr_num_fp16_res=0),
+                           trunk_layers_n=trunk_layers_n)
+    init_flagship(net.generator, seed=seed)
+    return net
 
 
 def example_inputs(batch: int = 1, seed: int = 0):

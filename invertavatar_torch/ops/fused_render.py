@@ -28,13 +28,13 @@ in-tile ray p = py·tw + px hold ray (ty·th + py)·res + tx·tw + px.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from .plane_sample import bilinear_sample_reference
 
 # --------------------------------------------------------------- tile helpers
 
@@ -44,15 +44,6 @@ def tile_shape(tile) -> Tuple[int, int]:
     if isinstance(tile, (tuple, list)):
         return int(tile[0]), int(tile[1])
     return int(tile), int(tile)
-
-
-def coarse_window_for(resolution: int, tile: int = 16) -> int:
-    """Texel window bounding a square ray-tile × stratum footprint. The JAX
-    renderer routes on it (`invertavatar_tpu/ops/plane_sample.py`), so the
-    port does too; the CUDA gather itself needs no window."""
-    frac = tile / max(resolution, 1)
-    texels = int(math.ceil(frac * 0.25 * 3.4 * 2 * 128))
-    return max(16, min(128, texels + 4))
 
 
 def tile_rays(res: int, tile, device) -> torch.Tensor:
@@ -74,26 +65,9 @@ def untile(x: torch.Tensor, res: int, tile) -> torch.Tensor:
 
 
 def _bilinear_sum(planes: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Σ over planes of the zeros-padded bilinear sample.
-
-    planes `[3, H, W, C]` float32, pts `[3, M, 2]` plane-space xy in [-1, 1]
-    -> `[M, C]` float32."""
-    N, H, W, C = planes.shape
-    gx = (pts[..., 0] + 1.0) * (W * 0.5) - 0.5
-    gy = (pts[..., 1] + 1.0) * (H * 0.5) - 0.5
-    x0f, y0f = torch.floor(gx), torch.floor(gy)
-    wx, wy = gx - x0f, gy - y0f
-    x0, y0 = x0f.long(), y0f.long()
-    flat = planes.reshape(N, H * W, C)
-    out = 0.0
-    for dy, dx, w in ((0, 0, (1 - wx) * (1 - wy)), (0, 1, wx * (1 - wy)),
-                      (1, 0, (1 - wx) * wy), (1, 1, wx * wy)):
-        yi, xi = y0 + dy, x0 + dx
-        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))  # [3, M]
-        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
-        out = out + vals * (w * valid)[..., None]
-    return out.sum(dim=0)
+    """Σ over planes of the zeros-padded bilinear sample: planes `[3, H, W, C]`
+    float32, pts `[3, M, 2]` plane-space xy in [-1, 1] -> `[M, C]` float32."""
+    return bilinear_sample_reference(planes, pts).sum(dim=0)
 
 
 def _decode(x: torch.Tensor, decoder_params) -> torch.Tensor:

@@ -4,14 +4,24 @@ Counterpart of `invertavatar_tpu/render/renderer.py`: dynamic near/far from
 the camera distance (‖ray_o‖ ± (0.45, 0.6)), stratified + importance samples,
 MipNeRF ray marching, deterministic importance sampling in evaluation mode.
 
-Routing follows the `rendering_kwargs` keys as the JAX renderer does, with one
-difference: the JAX gate "on a TPU or in Pallas interpret mode" is "always"
-here. The fused path runs whenever the kwargs ask for it; the kernel wrappers
-in `ops/fused_render.py` choose between the CUDA kernel and its plain version
-by the tensors' device, and nothing else in this module looks at the device.
+Routing follows the `rendering_kwargs` keys as the JAX renderer does
+(`invertavatar_tpu/render/renderer.py`), with one difference: the JAX gate "on
+a TPU or in Pallas interpret mode" is "always" here. Each kernel route runs
+whenever the kwargs ask for it; the kernel wrappers (`ops/fused_render.py`,
+`ops/plane_sample.py`) choose between the CUDA kernel and its plain version by
+the tensors' device, and nothing else in this module looks at the device.
 
-Planes are `[B, 3, C, H, W]` (the torch reference layout); the fused kernels
-take each batch item channels-last in bf16.
+The structured (ray-tile × stratum) passes route as in JAX:
+  * `pallas_grad` (training renders): `sample_planes_windowed_cvjp`, kernel
+    B3 forward with a float32 payload and the transpose kernel backward;
+  * `pallas_coarse` in evaluation: the fused kernels B1/B2, or B3 alone
+    (float32 payload with `pallas_exact`, else bfloat16) when `pallas_exact`
+    is set or `fused_render` is off;
+  * `windowed_coarse` alone (the JAX XLA formulation): an exact bilinear
+    sample, `F.grid_sample`.
+
+Planes are `[B, 3, C, H, W]` (the torch reference layout); the kernels take
+them channels-last, `[3B, H, W, C]`, copied once per render.
 """
 
 from __future__ import annotations
@@ -22,13 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_render import (
-    coarse_window_for,
-    fused_merged_march,
-    fused_render,
-    tile_shape,
-)
+from ..ops.fused_render import fused_merged_march, fused_render, tile_shape
 from ..ops.grid_sample import grid_sample
+from ..ops.plane_sample import (
+    coarse_window_for,
+    sample_planes_windowed,
+    sample_planes_windowed_cvjp,
+)
 from .math_utils import get_ray_limits_box
 from .ray_marcher import mip_ray_march
 
@@ -102,10 +112,6 @@ class ImportanceRenderer:
         generator: Optional[torch.Generator] = None,
         decoder_params: Optional[Tuple[torch.Tensor, ...]] = None,
     ):
-        if options.get("pallas_grad", False):
-            raise NotImplementedError(
-                "options['pallas_grad'] (the training sampler with a custom backward) "
-                "is not ported yet")
         device = ray_origins.device
         rs, re = options.get("ray_start", None), options.get("ray_end", None)
         if isinstance(rs, (int, float)) and isinstance(re, (int, float)):
@@ -145,9 +151,12 @@ class ImportanceRenderer:
         tile = max(8, res // 8)
         window = int(options.get("coarse_window", coarse_window_for(res, tile)))
         pallas_on = evaluation and options.get("pallas_coarse", False)
+        # grad-carrying structured sampling: B3 forward + transpose backward;
+        # the ray grid must be parameter-free (its cotangent is zero)
+        grad_pallas = options.get("pallas_grad", False)
         windowed_ok = (
             fast
-            and (options.get("windowed_coarse", False) or pallas_on)
+            and (options.get("windowed_coarse", False) or pallas_on or grad_pallas)
             and res * res == R
             and res % tile == 0
             and tile >= 8
@@ -164,13 +173,28 @@ class ImportanceRenderer:
             proj = project_onto_planes(box * coords_flat.float())
             return _sample(payload(fast and bf16_gather), proj)
 
+        planes_cl = []  # the channels-last [3B, H, W, C] copy, made at first use
+
+        def channels_last():
+            if not planes_cl:
+                planes_cl.append(planes.permute(0, 1, 3, 4, 2).reshape(
+                    Bp * n_planes, Hp, Wp, Cp).float().contiguous())
+            return planes_cl[0]
+
         def sample_feats_coarse(coords):  # [B, R, S, 3] -> [B, 3, R*S, C]
-            # The JAX package samples this structured pass with the windowed
-            # Pallas kernel B3 (bf16 payload unless pallas_exact) or its XLA
-            # tent-matmul twin; both are exact bilinear samples of the payload
-            # where footprints fit the window, which is what this computes.
+            S_ = coords.shape[2]
             proj = project_onto_planes(box * coords.reshape(Bp, -1, 3).float())
-            return _sample(payload(pallas_on and not pallas_exact), proj)
+            if grad_pallas:
+                out = sample_planes_windowed_cvjp(
+                    channels_last(), proj.reshape(Bp * n_planes, R, S_, 2))
+            elif pallas_on:
+                out = sample_planes_windowed(
+                    channels_last(), proj.reshape(Bp * n_planes, R, S_, 2),
+                    torch.float32 if pallas_exact else torch.bfloat16)
+            else:
+                # the JAX XLA windowed formulation: exact where footprints fit
+                return _sample(payload(False), proj)
+            return out.reshape(Bp, n_planes, R * S_, Cp)
 
         def run_fused(coords):  # [B, R, n, 3] -> colors [B,R,n,C], sigma [B,R,n,1]
             n = coords.shape[2]

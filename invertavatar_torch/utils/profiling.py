@@ -1,15 +1,20 @@
-"""Where the reenactment frame's time goes on one GPU.
+"""Where the time of a reenactment frame or an e4e training step goes on one GPU.
 
-    python -m invertavatar_torch.utils.profiling
+    python -m invertavatar_torch.utils.profiling          # the 512² frame
+    python -m invertavatar_torch.utils.profiling e4e      # one e4e training step
 
-Builds the flagship generator with seeded random weights (as `chip_smoke.py`
-does), precomputes the avatar once, times untraced frames on the host clock,
-then traces frames with `torch.profiler` and prints, per frame:
-  * host ms/frame (untraced) and device busy ms/frame (the sum of kernel
-    times; one stream, so kernels do not overlap) and the device's idle share
-  * for each stage of `synthesis_withTexture` (rasterize, face backbone,
-    renderer, super-resolution, the rest): its window on the device timeline,
-    the device time busy inside it, and its device ops
+`frame` builds the flagship generator with seeded random weights (as
+`chip_smoke.py` does) and precomputes the avatar once; `e4e` builds the e4e
+network (float32 flagship generator, IR-SE-50 encoder, latent discriminator)
+and steps `make_e4e_grad_programs` with the B3 fast paths on a synthetic B=1
+512² batch, as `chip_smoke.py` phase 10 does. Either times untraced
+iterations on the host clock, then traces iterations with `torch.profiler`
+and prints, per iteration:
+  * host ms (untraced) and device busy ms (the sum of kernel times; one
+    stream, so kernels do not overlap) and the device's idle share
+  * for the frame, each stage of `synthesis_withTexture` (rasterize, face
+    backbone, renderer, super-resolution, the rest): its window on the device
+    timeline, the device time busy inside it, and its device ops
   * the device ops with the most device time
 and, last, one JSON line with the same numbers.
 """
@@ -54,12 +59,10 @@ def _stage_scopes(G):
         del G.superresolution.forward
 
 
-def main():
+def _frame(dev):
+    """(iteration, stage scopes) of the reenactment frame loop."""
     from ..flagship import example_inputs, flagship_generator, init_flagship
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     G = init_flagship(flagship_generator(device=dev), seed=0)
     z, c, uvc = (torch.from_numpy(a).to(dev) for a in example_inputs(1))
     mesh = {"uvcoords_image": uvc}
@@ -70,26 +73,62 @@ def main():
         cache = G.precompute_raster_static(static)
         tex_cat = G.precompute_texture_concat(tex)
 
-        def frame():
-            return G.synthesis_withTexture(ws, tex, c, mesh, static_feats=static,
-                                           noise_mode="const", evaluation=True,
-                                           raster_static_cache=cache,
-                                           texture_concat_cache=tex_cat)["image"]
+    @torch.inference_mode()
+    def frame():
+        return G.synthesis_withTexture(ws, tex, c, mesh, static_feats=static,
+                                       noise_mode="const", evaluation=True,
+                                       raster_static_cache=cache,
+                                       texture_concat_cache=tex_cat)["image"]
 
-        for _ in range(3):
-            frame()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_FRAMES):
-            frame()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+    return frame, _stage_scopes(G)
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with _stage_scopes(G), torch.profiler.profile(activities=acts) as prof:
-            for _ in range(TRACED_FRAMES):
-                frame()
-            torch.cuda.synchronize()
+
+def _e4e(dev):
+    """(iteration, no scopes) of the e4e training step."""
+    import numpy as np
+
+    from ..flagship import example_inputs, flagship_inversion_net
+    from ..models.encoders import LatentCodesDiscriminator
+    from ..train.inversion import InversionLossWeights
+    from ..train.loop_inversion import e4e_trainable, make_e4e_grad_programs, masked_adam
+    from ..train.state import TrainState
+
+    net = flagship_inversion_net(device=dev)
+    wd = LatentCodesDiscriminator().to(dev)
+    state = TrainState(net, masked_adam(net, 1e-4, e4e_trainable))
+    wd_state = TrainState(wd, torch.optim.Adam(wd.parameters(), lr=2e-5))
+    z, c, uvc = (torch.from_numpy(a).to(dev) for a in example_inputs(1))
+    img = np.random.RandomState(0).uniform(-1, 1, (1, 3, 512, 512)).astype(np.float32)
+    batch = {"image": torch.from_numpy(img).to(dev), "c": c, "v": {"uvcoords_image": uvc}, "z": z}
+    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, w_delta=0.001, w_regular=0.0,
+                                   w_discriminator=0.01, raw_l1=1.0, tri=0.001)
+    step = make_e4e_grad_programs(net, lambda a, b: (a - b).abs().mean(), None, weights,
+                                  fast_igen_target="exact", fast_grad="pallas")
+    return (lambda: step(state, wd_state, batch)), contextlib.nullcontext()
+
+
+def main(argv=None):
+    import sys
+
+    path = (argv if argv is not None else sys.argv[1:] or ["frame"])[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    run, scopes = {"frame": _frame, "e4e": _e4e}[path](dev)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with scopes, torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRACED_FRAMES):
+            run()
+        torch.cuda.synchronize()
 
     n = TRACED_FRAMES
     # Device timeline: kernels, copies and fills (the ctypes-bound kernels too,
@@ -111,26 +150,26 @@ def main():
     busy_ms = sum(busy_us.values()) / n / 1e3
     idle = max(0.0, 1 - busy_ms / host_ms)
     card = torch.cuda.get_device_name(0)
-    print(f"card: {card}; torch {torch.__version__}")
-    print(f"host ms/frame (untraced, {TIMED_FRAMES} frames): {host_ms:.3f}")
-    print(f"device busy ms/frame: {busy_ms:.3f}; device ops/frame: {len(work) / n:.1f}; "
+    print(f"card: {card}; torch {torch.__version__}; path {path} (per {path} below)")
+    print(f"host ms (untraced, {TIMED_FRAMES} iterations): {host_ms:.3f}")
+    print(f"device busy ms: {busy_ms:.3f}; device ops: {len(work) / n:.1f}; "
           f"idle share: {idle:.3f}")
     stages = {}
-    for stage in (*STAGES, "other"):
+    for stage in (*STAGES, "other") if path == "frame" else ():
         stages[stage] = {"window_ms": window_us[stage] / n / 1e3,
                          "busy_ms": busy_us[stage] / n / 1e3, "ops": count[stage] / n}
         print(f"  stage {stage:16s} device window {stages[stage]['window_ms']:8.3f} ms, "
-              f"busy {stages[stage]['busy_ms']:8.3f} ms, {stages[stage]['ops']:6.1f} ops "
-              f"(per frame)")
+              f"busy {stages[stage]['busy_ms']:8.3f} ms, {stages[stage]['ops']:6.1f} ops")
     ops = sorted((e for e in prof.key_averages()
                   if e.self_device_time_total > 0 and not e.key.startswith("stage:")),
                  key=lambda e: e.self_device_time_total, reverse=True)[:TOP_OPS]
-    print("top device ops (ms/frame, calls/frame):")
+    print("top device ops (ms, calls):")
     for e in ops:
         print(f"  {e.self_device_time_total / n / 1e3:8.3f}  {e.count / n:6.1f}  {e.key[:100]}")
     print(json.dumps({
-        "card": card, "host_ms_per_frame": host_ms, "device_busy_ms_per_frame": busy_ms,
-        "idle_share": idle, "device_ops_per_frame": len(work) / n, "stages_per_frame": stages,
+        "card": card, "path": path, "host_ms": host_ms, "device_busy_ms": busy_ms,
+        "idle_share": idle, "device_ops": len(work) / n, "stages": stages,
+        "top_ops_ms": {e.key[:100]: e.self_device_time_total / n / 1e3 for e in ops},
     }))
 
 

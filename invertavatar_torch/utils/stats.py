@@ -1,0 +1,73 @@
+"""Metric accumulation and logging sinks.
+
+Counterpart of `invertavatar_tpu/utils/stats.py`: counters accumulate
+[num, sum, sum of squares] per name; `StatsLogger` appends one JSON line per
+tick to `stats.jsonl`. Runs are single-process, so there is no cross-process
+sync, and the JAX package's optional TensorBoard sink is left out.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import time
+from collections import defaultdict
+from typing import Dict
+
+import numpy as np
+
+
+class Collector:
+    def __init__(self, regex: str = ".*"):
+        self._regex = re.compile(regex)
+        self._moments: Dict[str, np.ndarray] = defaultdict(lambda: np.zeros(3, np.float64))
+        self._deltas: Dict[str, np.ndarray] = {}
+
+    def report(self, name: str, value) -> None:
+        arr = np.asarray(value, np.float64).ravel()
+        if arr.size == 0:
+            return
+        self._moments[name] += np.array([arr.size, arr.sum(), np.square(arr).sum()])
+
+    def update(self) -> None:
+        """Close a tick: the moments reported since the last update become
+        what `mean` / `std` / `as_dict` read."""
+        self._deltas = {k: v.copy() for k, v in self._moments.items()}
+        self._moments.clear()
+
+    def names(self):
+        return [n for n in self._deltas if self._regex.fullmatch(n)]
+
+    def mean(self, name: str) -> float:
+        d = self._deltas.get(name)
+        if d is None or d[0] == 0:
+            return float("nan")
+        return float(d[1] / d[0])
+
+    def std(self, name: str) -> float:
+        d = self._deltas.get(name)
+        if d is None or d[0] == 0:
+            return float("nan")
+        mean = d[1] / d[0]
+        return float(np.sqrt(max(d[2] / d[0] - mean * mean, 0)))
+
+    def as_dict(self) -> Dict[str, Dict[str, float]]:
+        return {name: {"num": float(self._deltas[name][0]), "mean": self.mean(name),
+                       "std": self.std(name)} for name in self.names()}
+
+
+class StatsLogger:
+    """Sink: `stats.jsonl` in `run_dir`."""
+
+    def __init__(self, run_dir: str):
+        os.makedirs(run_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(run_dir, "stats.jsonl"), "a")
+
+    def write(self, collector: Collector, step: int) -> None:
+        entry = {**collector.as_dict(), "timestamp": time.time(), "step": step}
+        self._jsonl.write(json.dumps(entry) + "\n")
+        self._jsonl.flush()
+
+    def close(self) -> None:
+        self._jsonl.close()

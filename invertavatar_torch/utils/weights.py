@@ -9,7 +9,9 @@ uses the torch reference key space and layouts.
   * fc weights    [in, out] -> [out, in]
   * synthesis const [H, W, C] -> [C, H, W]
   * `decoder.fc0` / `decoder.fc1` -> `decoder.net.0` / `decoder.net.2`
-  * `noise_const` / `w_avg` come from `buffers` under their own names
+  * `noise_const` / `w_avg` / `latent_avg` come from `buffers` under their
+    own names; `black_uv_bg` NHWC -> NCHW
+  * BatchNorm `running_mean` / `running_var` come from `batch_stats`
 
 `resample_filter` buffers are not in the trees: the port rebuilds them from
 their taps and keeps them out of the state dict.
@@ -50,13 +52,16 @@ def convert_array(name: str, arr: np.ndarray) -> np.ndarray:
         return arr
     if name.endswith(".const") and arr.ndim == 3:  # [H, W, C] -> [C, H, W]
         return np.transpose(arr, (2, 0, 1))
+    if name.split(".")[-1] == "black_uv_bg" and arr.ndim == 4:  # NHWC -> NCHW
+        return np.transpose(arr, (0, 3, 1, 2))
     return arr
 
 
 def jax_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
-    """`{"params": ..., "buffers": ...}` nested numpy dicts -> flat state dict."""
+    """`{"params": ..., "buffers": ..., "batch_stats": ...}` nested numpy dicts
+    -> flat state dict."""
     state = {}
-    for collection in ("params", "buffers"):
+    for collection in ("params", "buffers", "batch_stats"):
         for name, arr in _flatten(variables.get(collection, {})).items():
             for pat, repl in _RENAMES:
                 name = pat.sub(repl, name)
