@@ -9,6 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   3. kernel B1 (`fused_render`) against its plain version at the flagship
      shapes: the flagship camera's rays and coarse depths through the port's
      own projection, random bf16 planes [3,256,256,32], random decoder weights
+     (32 -> 64 -> 33); then again at the tests' decoder (C=8, HID=16), 64²
+     planes, 32² rays and tile (16, 2), whose 32-ray tiles leave B2's 64-ray
+     blocks ragged; the flagship shapes are timed
   4. kernel B2 (`fused_merged_march`) likewise, fed B1's raw output
   5. a small-config frame on the card (kernels) against the same frame on the
      CPU (plain versions)
@@ -29,7 +32,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      Igen target on B3 (fp32) and the student renders on B3 + its transpose;
      warm-up and timed steps; B3 must launch 6 times and its transpose 4
      times per step
-The last two lines are the kernels' JSON record and `{"ok": true, ...}`.
+Kernel times are each kernel's own device time (torch.profiler); plain
+versions and library calls are timed by the device time of all their ops.
+The last lines are the kernels' JSON record, the card's name and power limit,
+and `{"ok": true, ...}`.
 """
 
 import contextlib
@@ -45,15 +51,17 @@ sys.path.insert(0, REPO)
 
 N_WARMUP = 3
 N_FRAMES = 20
-N_TIMED = 15  # CUDA-event timings per kernel / plain version (median)
+N_TIMED = 15  # profiled calls per kernel (median), plain version and library call (mean)
 N_E4E_WARMUP = 2
 N_E4E_STEPS = 5
 # B3 launches per e4e step: two render passes (coarse, fine) of the Igen
 # target and of both students; transpose launches: both passes of both students
 B3_PER_STEP, B3T_PER_STEP = 6, 4
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3 rate
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
+# the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -70,22 +78,34 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n=N_TIMED, warmup=3):
-    """Median device time of `fn()` over `n` runs (CUDA events)."""
+def device_ms(fn, kernel=None, n=N_TIMED, warmup=3, tries=3):
+    """Device time of one call of fn(), from torch.profiler over `n` calls:
+    the median time of the kernel whose name holds `kernel` (one launch per
+    call), or else the mean device time of all the ops a call launches. CUDA
+    events around a call would also count the device's idle time while the
+    host prepares it. A session that lost kernel records (seen now and then
+    on the card) is repeated when it kept fewer than a third of them."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and (kernel is None or kernel in e.name))
+        if kernel is None and times:
+            return sum(times) / n
+        if kernel is not None and len(times) * 3 >= n:
+            if len(times) != n:
+                print(f"chip_smoke: note: the profiler kept {len(times)} of {n} launches of "
+                      f"{kernel}; their median is used")
+            return times[len(times) // 2]
+    fail(f"the profiler kept {len(times)} records of {kernel or 'a call'} in {n} calls")
 
 
 CU_SOURCES = ("fused_render", "plane_sample")
@@ -101,14 +121,21 @@ def print_build(tag, name):
             print(f"{tag}   ptxas: {line.strip()}")
 
 
-def bound(bytes_, flops):
-    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound(bytes_, flops, tc_flops=0.0):
+    """Least time (ms) for the work and what sets it: the bytes over the memory
+    rate against the operations, `flops` at the fp32 peak plus `tc_flops` at
+    the TF32 tensor-core peak."""
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + tc_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def decoder_flops_per_point(C, HID):
-    # taps: 3 planes x 4 taps x C multiply-adds; MLP: C*HID + HID*(1+C) multiply-adds
-    return 2 * (12 * C + C * HID + HID * (C + 1))
+def tap_flops_per_point(C):
+    return 2 * 12 * C  # 3 planes x 4 taps x C multiply-adds
+
+
+def mlp_flops_per_point(C, HID):
+    return 2 * (C * HID + HID * (C + 1))  # the decoder, counted once
 
 
 @contextlib.contextmanager
@@ -126,6 +153,94 @@ def recording(module, name, calls):
         yield
     finally:
         setattr(module, name, orig)
+
+
+def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk, res,
+                         timed=False):
+    """Phases 3-4 at one shape: one render through the port's renderer with B1
+    and B2 recorded, each held against its plain version on the recorded
+    inputs; with `timed`, both are timed and their kernel records returned."""
+    from invertavatar_torch.render.ray_sampler import sample_rays
+
+    c = torch.from_numpy(c_np).to(planes.device)
+    ray_o, ray_d = sample_rays(c[:, :16].reshape(-1, 4, 4), c[:, 16:25].reshape(-1, 3, 3), res)
+    b1_calls, b2_calls = [], []
+    with torch.inference_mode(), recording(rmod, "fused_render", b1_calls), \
+            recording(rmod, "fused_merged_march", b2_calls):
+        rmod.ImportanceRenderer()(planes, decoder, ray_o, ray_d, rk, evaluation=True,
+                                  decoder_params=decoder.return_params())
+    torch.cuda.synchronize()
+    if len(b1_calls) != 1 or len(b2_calls) != 1:
+        fail(f"the {label} render made {len(b1_calls)} B1 and {len(b2_calls)} B2 calls, "
+             "expected one each")
+    kernels = []
+
+    def record(name, replaces, err, ms, plain_ms, nbytes, ops, mlp, what):
+        """Print the kernel's time beside both bounds (MLP on the tensor cores,
+        and on the fp32 cores as before) and keep its JSON record."""
+        b, by = bound(nbytes, ops, mlp)
+        b_fp32, by_fp32 = bound(nbytes, ops + mlp)
+        print(f"[{'3' if name == 'fused_render' else '4'}] {name} kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {b:.4f} ms ({by}; MLP on the TF32 tensor cores) beside "
+              f"{b_fp32:.4f} ms ({by_fp32}; MLP on the fp32 cores); {nbytes / 1e6:.1f} MB, "
+              f"{mlp / 1e9:.2f} GFLOP MLP + {ops / 1e9:.2f} GFLOP {what} on {card}")
+        kernels.append(dict(name=name, route="cuda",
+                            source="invertavatar_torch/csrc/fused_render.cu", replaces=replaces,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                            library_ms=None))
+
+    with torch.inference_mode():
+        # B1
+        args, kw, raw = b1_calls[0]
+        pl, grid, params = args[0], args[1], args[2]
+        ref = fr.fused_render_reference(*args, **kw).float()
+        err = (raw.float() - ref).abs()
+        tol = ref.abs() * 2.0 ** -7 + 1e-4  # one bf16 ulp of the output + fp32 reorder
+        bad = int((err > tol).sum())
+        C = pl.shape[-1]
+        HID = params[0].shape[1]
+        points = raw.shape[0] * raw.shape[1]
+        print(f"[3] B1 fused_render {label}: out {tuple(raw.shape)} bf16, {points} points; "
+              f"max|k-p| {err.max().item():.3e} mean {err.mean().item():.3e}; "
+              f"tolerance |k-p| <= 2^-7|p| + 1e-4, violations {bad}")
+        if bad or not torch.isfinite(raw.float()).all():
+            fail(f"B1 ({label}) disagrees with its plain version")
+        if timed:
+            record("fused_render", "invertavatar_tpu/ops/pallas_fused_render.py:150",
+                   err.max().item(),
+                   device_ms(lambda: fr.fused_render(*args, **kw), "fused_render_kernel<"),
+                   device_ms(lambda: fr.fused_render_reference(*args, **kw)),
+                   grid.numel() * 4 + pl.numel() * 2 + raw.numel() * 2,
+                   points * tap_flops_per_point(C), points * mlp_flops_per_point(C, HID), "taps")
+
+        # B2, fed B1's raw output from the same render
+        args, kw, out_k = b2_calls[0]
+        out_p = fr.fused_merged_march_reference(*args, **kw)
+        worst, total, count, bad = 0.0, 0.0, 0, 0
+        for a, b in zip(out_k, out_p):
+            e = (a - b).abs()
+            worst = max(worst, e.max().item())
+            total += e.sum().item()
+            count += e.numel()
+            bad += int((e > 1e-4 * b.abs() + 1e-4).sum())
+        pl, proj_m, is_fine, src, d_m, coarse = args[:6]
+        T, Sm = is_fine.shape
+        P = proj_m.shape[3]
+        n_fine_pts = int(is_fine.sum().item()) * P
+        print(f"[4] B2 fused_merged_march {label}: T={T} Sm={Sm} P={P}, {n_fine_pts} fine "
+              f"points; max|k-p| {worst:.3e} mean {total / count:.3e}; "
+              f"tolerance |k-p| <= 1e-4|p| + 1e-4, violations {bad}")
+        if bad or not all(torch.isfinite(a).all() for a in out_k):
+            fail(f"B2 ({label}) disagrees with its plain version")
+        if timed:
+            record("fused_merged_march", "invertavatar_tpu/ops/pallas_fused_render.py:398", worst,
+                   device_ms(lambda: fr.fused_merged_march(*args, **kw), "merged_march_kernel<"),
+                   device_ms(lambda: fr.fused_merged_march_reference(*args, **kw)),
+                   coarse.numel() * 2 + 3 * n_fine_pts * 2 * 4 + pl.numel() * 2
+                   + 3 * T * Sm * 4 + T * P * (C + 2) * 4,
+                   n_fine_pts * tap_flops_per_point(C) + T * Sm * P * (3 * C + 12),
+                   n_fine_pts * mlp_flops_per_point(C, HID), "taps and march")
+    return kernels
 
 
 def e4e_phases(torch, dev, card, ps, rmod):
@@ -190,7 +305,7 @@ def e4e_phases(torch, dev, card, ps, rmod):
         # the channels-last copy the renderer makes once per render
         planes_nc = G.backbone.synthesis(ws, return_list=True, noise_mode="const")[-1]
         planes_nc = planes_nc.reshape(1, 3, -1, *planes_nc.shape[-2:]).float()
-        copy_ms = cuda_ms(lambda: planes_nc.permute(0, 1, 3, 4, 2).reshape(
+        copy_ms = device_ms(lambda: planes_nc.permute(0, 1, 3, 4, 2).reshape(
             3, *planes_nc.shape[-2:], planes_nc.shape[2]).contiguous())
         print(f"[8] [B,3,C,H,W] -> [3B,H,W,C] copy of the planes: {copy_ms:.4f} ms "
               f"({planes_nc.numel() * 8 / 1e6:.1f} MB moved) on {card}")
@@ -217,11 +332,12 @@ def e4e_phases(torch, dev, card, ps, rmod):
                     fail(f"B3 ({dt}) disagrees with its plain version")
             if not torch.equal(out, ps.sample_planes_windowed(planes, grid)):
                 fail("the recorded student render's B3 output differs from a fresh launch")
-            f_ms = cuda_ms(lambda: ps.sample_planes_windowed(planes, grid))
-            f_plain = cuda_ms(lambda: ps.sample_planes_windowed_reference(planes, grid))
-            f_lib = cuda_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
+            f_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid), "sample_kernel<")
+            f_plain = device_ms(lambda: ps.sample_planes_windowed_reference(planes, grid))
+            f_lib = device_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
                                                   padding_mode="zeros", align_corners=False))
-            bf_ms = cuda_ms(lambda: ps.sample_planes_windowed(planes, grid, torch.bfloat16))
+            bf_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid, torch.bfloat16),
+                              "sample_kernel<")
             f_bytes = grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4
             f_bound, f_by = bound(f_bytes, n_pts * 4 * C * 2)
             print(f"[8] B3 {label} fp32 kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
@@ -240,10 +356,11 @@ def e4e_phases(torch, dev, card, ps, rmod):
             if bad or not torch.isfinite(k).all():
                 fail("the B3 transpose disagrees with its plain version")
             cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
-            b_ms = cuda_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape))
-            b_plain = cuda_ms(lambda: ps.windowed_sample_transpose_reference(grid, cot,
+            b_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
+                             "transpose_kernel(")
+            b_plain = device_ms(lambda: ps.windowed_sample_transpose_reference(grid, cot,
                                                                             planes.shape))
-            b_lib = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            b_lib = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 cot_nchw, planes_nchw, grid, 0, 0, False, [True, False]))
             b_bytes = grid.numel() * 4 + cot.numel() * 4 + planes.numel() * 4
             b_bound, b_by = bound(b_bytes, n_pts * 4 * C * 2)
@@ -381,7 +498,6 @@ def main():
         from invertavatar_torch.ops import fused_render as fr
         from invertavatar_torch.ops import plane_sample as ps
         from invertavatar_torch.render import renderer as rmod
-        from invertavatar_torch.render.ray_sampler import sample_rays
         from invertavatar_torch.utils import cuda_build
     except ImportError as e:
         print(f"chip_smoke: the invertavatar_torch package is not importable here ({e})",
@@ -412,88 +528,18 @@ def main():
     rk.pop("ray_start")
     rk.pop("ray_end")
     z_np, c_np, uvc_np = example_inputs(1)
-    c = torch.from_numpy(c_np).to(dev)
-    res = 128
-    ray_o, ray_d = sample_rays(c[:, :16].reshape(-1, 4, 4), c[:, 16:25].reshape(-1, 3, 3), res)
     gen = torch.Generator(device=dev).manual_seed(0)
     planes = torch.randn((1, 3, 32, 256, 256), generator=gen, device=dev)
     torch.manual_seed(0)
-    decoder = OSGDecoder(32, decoder_output_dim=32).to(dev)
-    b1_calls, b2_calls = [], []
-    with torch.inference_mode(), recording(rmod, "fused_render", b1_calls), \
-            recording(rmod, "fused_merged_march", b2_calls):
-        rmod.ImportanceRenderer()(planes, decoder, ray_o, ray_d, rk, evaluation=True,
-                                  decoder_params=decoder.return_params())
-    torch.cuda.synchronize()
-    if len(b1_calls) != 1 or len(b2_calls) != 1:
-        fail(f"the flagship render made {len(b1_calls)} B1 and {len(b2_calls)} B2 calls, "
-             "expected one each")
-    kernels = []
-
-    with torch.inference_mode():
-        # B1
-        args, kw, raw = b1_calls[0]
-        pl, grid, params = args[0], args[1], args[2]
-        plain = fr.fused_render_reference(*args, **kw)
-        ref = plain.float()
-        err = (raw.float() - ref).abs()
-        tol = ref.abs() * 2.0 ** -7 + 1e-4  # one bf16 ulp of the output + fp32 reorder
-        bad = int((err > tol).sum())
-        C = pl.shape[-1]
-        HID = params[0].shape[1]
-        points = raw.shape[0] * raw.shape[1]
-        b1_bytes = grid.numel() * 4 + pl.numel() * 2 + raw.numel() * 2
-        b1_flops = points * decoder_flops_per_point(C, HID)
-        b1_bound, b1_by = bound(b1_bytes, b1_flops)
-        print(f"[3] B1 fused_render: out {tuple(raw.shape)} bf16, {points} points; "
-              f"max|k-p| {err.max().item():.3e} mean {err.mean().item():.3e}; "
-              f"tolerance |k-p| <= 2^-7|p| + 1e-4, violations {bad}")
-        if bad or not torch.isfinite(raw.float()).all():
-            fail("B1 disagrees with its plain version")
-        b1_ms = cuda_ms(lambda: fr.fused_render(*args, **kw))
-        b1_plain_ms = cuda_ms(lambda: fr.fused_render_reference(*args, **kw))
-        print(f"[3] B1 kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, bound {b1_bound:.4f} ms "
-              f"({b1_by}; {b1_bytes / 1e6:.1f} MB, {b1_flops / 1e9:.2f} GFLOP) on {card}")
-        kernels.append(dict(
-            name="fused_render", route="cuda", source="invertavatar_torch/csrc/fused_render.cu",
-            replaces="invertavatar_tpu/ops/pallas_fused_render.py:150",
-            max_abs_err=err.max().item(), ms=b1_ms, plain_ms=b1_plain_ms, bound_ms=b1_bound,
-            bound_by=b1_by, library_ms=None))
-
-        # B2, fed B1's raw output from the same render
-        args, kw, out_k = b2_calls[0]
-        out_p = fr.fused_merged_march_reference(*args, **kw)
-        worst, total, count, bad = 0.0, 0.0, 0, 0
-        for a, b in zip(out_k, out_p):
-            e = (a - b).abs()
-            worst = max(worst, e.max().item())
-            total += e.sum().item()
-            count += e.numel()
-            bad += int((e > 1e-4 * b.abs() + 1e-4).sum())
-        pl, proj_m, is_fine, src, d_m, coarse = args[:6]
-        T, Sm = is_fine.shape
-        P = proj_m.shape[3]
-        n_fine_pts = int(is_fine.sum().item()) * P
-        b2_bytes = (coarse.numel() * 2 + 3 * n_fine_pts * 2 * 4 + pl.numel() * 2
-                    + 3 * T * Sm * 4 + T * P * (C + 2) * 4)
-        b2_flops = n_fine_pts * decoder_flops_per_point(C, HID) + T * Sm * P * (3 * C + 12)
-        b2_bound, b2_by = bound(b2_bytes, b2_flops)
-        print(f"[4] B2 fused_merged_march: T={T} Sm={Sm} P={P}, {n_fine_pts} fine points; "
-              f"max|k-p| {worst:.3e} mean {total / count:.3e}; "
-              f"tolerance |k-p| <= 1e-4|p| + 1e-4, violations {bad}")
-        if bad or not all(torch.isfinite(a).all() for a in out_k):
-            fail("B2 disagrees with its plain version")
-        b2_ms = cuda_ms(lambda: fr.fused_merged_march(*args, **kw))
-        b2_plain_ms = cuda_ms(lambda: fr.fused_merged_march_reference(*args, **kw))
-        print(f"[4] B2 kernel {b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, bound {b2_bound:.4f} ms "
-              f"({b2_by}; {b2_bytes / 1e6:.1f} MB, {b2_flops / 1e9:.2f} GFLOP) on {card}")
-        kernels.append(dict(
-            name="fused_merged_march", route="cuda",
-            source="invertavatar_torch/csrc/fused_render.cu",
-            replaces="invertavatar_tpu/ops/pallas_fused_render.py:398",
-            max_abs_err=worst, ms=b2_ms, plain_ms=b2_plain_ms, bound_ms=b2_bound,
-            bound_by=b2_by, library_ms=None))
-    del b1_calls, b2_calls, planes
+    kernels = render_kernel_checks(torch, fr, rmod, card, "flagship", c_np, planes,
+                                   OSGDecoder(32, decoder_output_dim=32).to(dev), rk, 128,
+                                   timed=True)
+    render_kernel_checks(torch, fr, rmod, card, "C=8 HID=16 tile (16, 2)", c_np,
+                         torch.randn((1, 3, 8, 64, 64), generator=gen, device=dev),
+                         OSGDecoder(8, hidden_dim=16, decoder_output_dim=8).to(dev),
+                         dict(rk, depth_resolution=8, depth_resolution_importance=8,
+                              tile_shape=(16, 2)), 32)
+    del planes
 
     # ---------------------------------------------------------------- phase 5
     small_rk = dict(FLAGSHIP_RENDERING_KWARGS, depth_resolution=12,

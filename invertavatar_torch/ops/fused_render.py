@@ -10,9 +10,12 @@ Counterpart of `invertavatar_tpu/ops/pallas_fused_render.py`. Two CUDA kernels
     `return_raw` it writes the tile-major `[T·S, P, 1+C]` layout in bf16 that
     the importance CDF and B2 read.
   * `fused_merged_march` (B2, replaces `_kernel_march` /
-    `fused_merged_march_pallas`): per ray, walk the tile-shared merged depth
-    list; fine slots re-sample and decode as B1, coarse slots read the B1 raw
-    row; then the MipNeRF march, all in registers.
+    `fused_merged_march_pallas`): per tile, walk the tile-shared merged depth
+    list; each fine slot re-samples and decodes all rays of the tile as B1,
+    coarse slots read the B1 raw rows; then the MipNeRF march per ray.
+
+Both kernels run the decoder MLP on the tensor cores (TF32 with a three-term
+split, so it keeps float32 accuracy; see the note in `csrc/fused_render.cu`).
 
 Each wrapper runs its plain PyTorch version (`*_reference`, same module) when
 its tensors lie on the CPU and launches the kernel when they lie on a CUDA
@@ -135,7 +138,9 @@ def fused_merged_march_reference(planes, proj_m, is_fine, src, d_m, coarse_out,
 # ------------------------------------------------------------------- kernels
 
 _CU_SOURCE = "fused_render"
-_SUPPORTED_C = (8, 32)  # the tests' and the flagship's plane channels
+# the decoders (C, HID) the kernels are built for: the tests' and the flagship's
+_KERNEL_DECODERS = ((8, 16), (32, 64))
+_SUPPORTED_C = tuple(c for c, _ in _KERNEL_DECODERS)
 
 
 def _lib() -> ctypes.CDLL:
@@ -157,13 +162,16 @@ def _check(cond: bool, msg: str):
 
 def _pack_decoder(decoder_params, C: int, device) -> Tuple[torch.Tensor, int]:
     """One float32 buffer `[w1ᵀ (HID×C) | b1 | w2 (HID×OP) | b2 (OP)]`, OP = 1+C
-    padded to a multiple of 4, as the kernels stage it in shared memory."""
+    padded to a multiple of 4, as the kernels read it; they split it for the
+    tensor cores while staging it in shared memory."""
     w1, b1, w2, b2 = (p.detach().float().to(device) for p in decoder_params)
     HID = w1.shape[1]
     _check(tuple(w1.shape) == (C, HID) and tuple(b1.shape) == (HID,)
            and tuple(w2.shape) == (HID, C + 1) and tuple(b2.shape) == (C + 1,),
            f"decoder params must be w1 [C,HID], b1 [HID], w2 [HID,1+C], b2 [1+C] with C={C}")
-    _check(HID % 4 == 0, "the decoder's hidden width must be a multiple of 4")
+    _check(HID % 8 == 0, "the decoder's hidden width must be a multiple of 8")
+    _check((C, HID) in _KERNEL_DECODERS,
+           f"the kernels are built for (C, HID) in {_KERNEL_DECODERS}")
     OP = (C + 1 + 3) // 4 * 4
     pad = OP - (C + 1)
     return torch.cat([w1.t().reshape(-1), b1, F.pad(w2, (0, pad)).reshape(-1),

@@ -161,18 +161,60 @@ def test_renderer_exact_paths_match_jax(pooled):
     np.testing.assert_allclose(ws.numpy(), np.asarray(ws_j), atol=1e-4)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10-bit mantissa), to nearest with ties away from
+    zero, as `cvt.rna.tf32.f32` does: add half of the dropped bits, mask them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """a @ b on TF32 tensor cores with float32 sums: one pass, or the 3-term
+    split big·big + big·small + small·big that the B1/B2 decoder uses."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _tf32_decode(x, params, split):
+    w1, b1, w2, b2 = params
+    o = _tf32_matmul(torch.nn.functional.softplus(_tf32_matmul(x, w1, split) + b1), w2, split) + b2
+    return torch.cat([o[:, :1], torch.sigmoid(o[:, 1:]) * (1 + 2 * 0.001) - 0.001], dim=1)
+
+
+@pytest.mark.parametrize("C,HID", [(32, 64), (8, 16)])
+def test_split_tf32_decoder_matches_fp32(C, HID):
+    """The kernels' decoder emulated on the CPU: the 3-term TF32 split meets
+    B2's tolerance (1e-4|p| + 1e-4) against the float32 `_decode`; one TF32
+    pass does not, which is why the kernels split."""
+    rng = np.random.RandomState(7)
+    x = _t(rng.randn(8192, C))  # plane means of unit-scale features
+    params = tuple(_t(p) for p in _decoder_params(rng, C=C, HID=HID, OUT=C))
+    ref = fr._decode(x, params)
+    tol = 1e-4 * ref.abs() + 1e-4
+    split = _tf32_decode(x, params, split=True)
+    assert (split - ref).abs().le(tol).all(), (split - ref).abs().max()
+    single = _tf32_decode(x, params, split=False)
+    assert (single - ref).abs().gt(tol).any()
+    # TF32 keeps 10 mantissa bits: rounding leaves at most 2^-11 relative
+    assert _tf32(x).sub(x).abs().le(x.abs() * 2.0 ** -11).all()
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """B1 and B2 on the card against their plain versions on the same inputs.
-    B1 writes bf16: one bf16 ulp of the output (2^-7 relative) plus 1e-4 for
-    fp32 sums taken in another order. B2 writes fp32: 1e-4 relative."""
+@pytest.mark.parametrize("C,HID,tile", [(8, 16, (16, 2)), (32, 64, (16, 4))])
+def test_cuda_kernels_match_plain_versions(C, HID, tile):
+    """B1 and B2 on the card against their plain versions on the same inputs,
+    at the tests' decoder with a ragged 32-ray B2 block and at the flagship's
+    widths. B1 writes bf16: one bf16 ulp of the output (2^-7 relative) plus
+    1e-4 for fp32 sums taken in another order. B2 writes fp32: 1e-4 relative."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.RandomState(6)
-    res, S, n_imp, tile = 32, 8, 8, (16, 4)
-    planes = _t(rng.randn(3, 64, 64, 32)).to(dev).to(torch.bfloat16)
-    params = tuple(_t(p).to(dev) for p in _decoder_params(rng, C=32, HID=64, OUT=32))
+    res, S, n_imp = 32, 8, 8
+    planes = _t(rng.randn(3, 64, 64, C)).to(dev).to(torch.bfloat16)
+    params = tuple(_t(p).to(dev) for p in _decoder_params(rng, C=C, HID=HID, OUT=C))
     grid = torch.from_numpy(_structured_grid(rng, 3, res, S)).to(dev)
 
     raw_k = fr.fused_render(planes, grid, params, res=res, tile=tile, return_raw=True)
@@ -180,8 +222,14 @@ def test_cuda_kernels_match_plain_versions():
     torch.cuda.synchronize()
     ref = raw_p.float()
     assert (raw_k.float() - ref).abs().le(ref.abs() * 2.0 ** -7 + 1e-4).all()
+    # the float32 route (the renderer's unpooled fused coarse pass)
+    rgb_k, sigma_k = fr.fused_render(planes, grid, params, res=res, tile=tile)
+    rgb_p, sigma_p = fr.fused_render_reference(planes, grid, params, res=res, tile=tile)
+    assert torch.allclose(rgb_k, rgb_p, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(sigma_k, sigma_p, rtol=1e-4, atol=1e-4)
 
-    T, P, Sm = 16, 64, S + n_imp
+    th, tw = tile
+    T, P, Sm = (res // th) * (res // tw), th * tw, S + n_imp
     d_m = torch.sort(torch.rand(T, Sm, device=dev) + 2.2, dim=1).values
     is_fine = (torch.rand(T, Sm, device=dev) < 0.5).to(torch.int32)
     src = torch.randint(0, S, (T, Sm), device=dev, dtype=torch.int32)
