@@ -22,8 +22,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      phase 2 beside `fused_render.cu`, each by its own nvcc)
   8. B3 (float32 and bf16 payloads) and its transpose against their plain
      versions at the shapes of a real full-width student render (recorded
-     through the renderer), with `F.grid_sample`'s forward and backward timed
-     as the library yardstick, and the channels-last copy of the planes
+     through the renderer), with `F.grid_sample`'s forward (on float32 and on
+     bf16 planes) and backward timed as the library yardstick, the
+     transpose's zero fill beside it, and the channels-last copy of the
+     planes; the transpose also at the worst contention (every coarse point
+     on one 2x2 texel patch)
   9. a small-config e4e training step on the card against the same step on
      the CPU: losses and encoder gradients
  10. the e4e training path: the float32 flagship generator (frozen) with an
@@ -243,6 +246,21 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
     return kernels
 
 
+def transpose_check(torch, ps, label, grid, cot, planes_shape):
+    """The transpose kernel against its plain version; returns max |k - p|."""
+    k = ps.windowed_sample_transpose(grid, cot, planes_shape)
+    p = ps.windowed_sample_transpose_reference(grid, cot, planes_shape)
+    m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes_shape)
+    e = (k - p).abs()
+    bad = int((e > 1e-5 * m + 1e-7).sum())
+    print(f"[8] B3 transpose {label}: max|k-p| {e.max().item():.3e} mean "
+          f"{e.mean().item():.3e}; tolerance |k-p| <= 1e-5·Σw|cot| + 1e-7 (float32 "
+          f"sums in no fixed order), violations {bad}")
+    if bad or not torch.isfinite(k).all():
+        fail(f"the B3 transpose ({label}) disagrees with its plain version")
+    return e.max().item()
+
+
 def e4e_phases(torch, dev, card, ps, rmod):
     """Phases 7-10; returns the kernel records of B3 and its transpose."""
     import numpy as np
@@ -336,49 +354,63 @@ def e4e_phases(torch, dev, card, ps, rmod):
             f_plain = device_ms(lambda: ps.sample_planes_windowed_reference(planes, grid))
             f_lib = device_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
                                                   padding_mode="zeros", align_corners=False))
-            bf_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid, torch.bfloat16),
-                              "sample_kernel<")
             f_bytes = grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4
             f_bound, f_by = bound(f_bytes, n_pts * 4 * C * 2)
             print(f"[8] B3 {label} fp32 kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
                   f"F.grid_sample {f_lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}; "
-                  f"{f_bytes / 1e6:.1f} MB); bf16 payload kernel {bf_ms:.4f} ms on {card}")
+                  f"{f_bytes / 1e6:.1f} MB) on {card}")
+            # the bf16 payload (the eval route): bf16 planes in, bf16 samples out
+            bf_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid, torch.bfloat16),
+                              "sample_kernel<")
+            planes_bf, grid_bf = planes_nchw.bfloat16(), grid.bfloat16()
+            bf_lib = device_ms(lambda: F.grid_sample(planes_bf, grid_bf, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=False))
+            bf_bytes = grid.numel() * 4 + planes.numel() * 2 + n_pts * C * 2
+            bf_bound, bf_by = bound(bf_bytes, n_pts * 4 * C * 2)
+            print(f"[8] B3 {label} bf16 payload kernel {bf_ms:.4f} ms, F.grid_sample on bf16 "
+                  f"planes {bf_lib:.4f} ms, bound {bf_bound:.4f} ms ({bf_by}; "
+                  f"{bf_bytes / 1e6:.1f} MB) on {card}")
+            del planes_bf, grid_bf
             # backward: the transpose, against its plain version and grid_sample's backward
             cot = torch.randn((N, R, S, C), device=dev)
-            k = ps.windowed_sample_transpose(grid, cot, planes.shape)
-            p = ps.windowed_sample_transpose_reference(grid, cot, planes.shape)
-            m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes.shape)
-            e = (k - p).abs()
-            bad = int((e > 1e-5 * m + 1e-7).sum())
-            print(f"[8] B3 transpose {label} S={S}: max|k-p| {e.max().item():.3e} mean "
-                  f"{e.mean().item():.3e}; tolerance |k-p| <= 1e-5·Σw|cot| + 1e-7 (float32 "
-                  f"atomics in no fixed order), violations {bad}")
-            if bad or not torch.isfinite(k).all():
-                fail("the B3 transpose disagrees with its plain version")
+            e = transpose_check(torch, ps, f"{label} S={S}", grid, cot, planes.shape)
             cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
             b_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
-                             "transpose_kernel(")
+                             "window_transpose_kernel")
+            fill_ms = device_ms(lambda: torch.zeros(planes.shape, device=dev))
             b_plain = device_ms(lambda: ps.windowed_sample_transpose_reference(grid, cot,
                                                                             planes.shape))
             b_lib = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 cot_nchw, planes_nchw, grid, 0, 0, False, [True, False]))
             b_bytes = grid.numel() * 4 + cot.numel() * 4 + planes.numel() * 4
             b_bound, b_by = bound(b_bytes, n_pts * 4 * C * 2)
-            print(f"[8] B3 transpose {label} kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, "
-                  f"grid_sample backward {b_lib:.4f} ms, bound {b_bound:.4f} ms ({b_by}; "
-                  f"{b_bytes / 1e6:.1f} MB) on {card}")
+            print(f"[8] B3 transpose {label} kernel {b_ms:.4f} ms (one kernel; the wrapper's "
+                  f"zero fill {fill_ms:.4f} ms besides), plain {b_plain:.4f} ms, grid_sample "
+                  f"backward {b_lib:.4f} ms (its zero fill included), bound {b_bound:.4f} ms "
+                  f"({b_by}; {b_bytes / 1e6:.1f} MB) on {card}")
             if label == "coarse":  # the JSON record holds the S=40 pass
+                # worst contention: every point of the pass on one 2x2 texel patch
+                patch = (torch.tensor([100.5, 120.5], device=dev) + 0.5) / (H * 0.5) - 1.0
+                grid_1 = patch + torch.rand(grid.shape, device=dev) / H
+                transpose_check(torch, ps, f"one 2x2 patch S={S}", grid_1, cot, planes.shape)
+                one_ms = device_ms(lambda: ps.windowed_sample_transpose(grid_1, cot,
+                                                                        planes.shape),
+                                   "window_transpose_kernel")
+                print(f"[8] B3 transpose one 2x2 patch S={S} kernel {one_ms:.4f} ms on {card}")
+                del grid_1
                 records = [
                     dict(name="plane_sample", route="cuda",
                          source="invertavatar_torch/csrc/plane_sample.cu",
                          replaces="invertavatar_tpu/ops/pallas_plane_sample.py:39",
                          max_abs_err=errs[torch.float32], ms=f_ms, plain_ms=f_plain,
-                         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib),
+                         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
+                         bf16_ms=bf_ms, bf16_bound_ms=bf_bound, bf16_library_ms=bf_lib),
                     dict(name="plane_sample_transpose", route="cuda",
                          source="invertavatar_torch/csrc/plane_sample.cu",
                          replaces="invertavatar_tpu/ops/plane_sample.py:170",
-                         max_abs_err=e.max().item(), ms=b_ms, plain_ms=b_plain,
-                         bound_ms=b_bound, bound_by=b_by, library_ms=b_lib)]
+                         max_abs_err=e, ms=b_ms, plain_ms=b_plain,
+                         bound_ms=b_bound, bound_by=b_by, library_ms=b_lib,
+                         zero_fill_ms=fill_ms, one_patch_ms=one_ms)]
     del calls, tex, static, ws, planes_nc
 
     # ---------------------------------------------------------------- phase 9
@@ -621,7 +653,9 @@ def main():
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
+    print(json.dumps({"kernels": [{**{key: k[key] for key in order},
+                                   **{key: v for key, v in k.items() if key not in order}}
+                                  for k in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
