@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`invertavatar_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--earlier-src PATH ...]
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card's name and power limit, torch version; TF32 off for the checks
@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      bf16 planes) and backward timed as the library yardstick, the
      transpose's zero fill beside it, and the channels-last copy of the
      planes; the transpose also at the worst contention (every coarse point
-     on one 2x2 texel patch)
+     on one 2x2 texel patch). With `--earlier-src PATH` (repeatable), the
+     transpose kernel of another `plane_sample.cu` with the same C interface
+     (an earlier commit's, say, written under build/) is built by nvcc and
+     checked and timed on the same grids, between two timings of the port's
   9. a small-config e4e training step on the card against the same step on
      the CPU: losses and encoder gradients
  10. the e4e training path: the float32 flagship generator (frozen) with an
@@ -246,9 +249,10 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
     return kernels
 
 
-def transpose_check(torch, ps, label, grid, cot, planes_shape):
-    """The transpose kernel against its plain version; returns max |k - p|."""
-    k = ps.windowed_sample_transpose(grid, cot, planes_shape)
+def transpose_check(torch, ps, label, grid, cot, planes_shape, transpose=None):
+    """The transpose kernel (the port's, or `transpose`) against its plain
+    version; returns max |k - p|."""
+    k = (transpose or ps.windowed_sample_transpose)(grid, cot, planes_shape)
     p = ps.windowed_sample_transpose_reference(grid, cot, planes_shape)
     m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes_shape)
     e = (k - p).abs()
@@ -261,7 +265,48 @@ def transpose_check(torch, ps, label, grid, cot, planes_shape):
     return e.max().item()
 
 
-def e4e_phases(torch, dev, card, ps, rmod):
+def earlier_transposes(torch, ps, paths):
+    """{path: transpose(grid, cot, planes_shape)} launching the transpose
+    kernel of each earlier `plane_sample.cu`, built by nvcc into build/."""
+    import ctypes
+
+    from invertavatar_torch.utils import cuda_build
+
+    out = {}
+    for i, path in enumerate(paths):
+        lib = ctypes.CDLL(str(cuda_build.build(f"earlier{i}_plane_sample", path)))
+        lib.plane_sample_transpose_launch.argtypes = \
+            ps._lib().plane_sample_transpose_launch.argtypes
+        lib.plane_sample_transpose_launch.restype = ctypes.c_int
+
+        def transpose(grid, cot, planes_shape, lib=lib, path=path):
+            grid, cot = grid.contiguous(), cot.contiguous()
+            d = torch.zeros(planes_shape, device=grid.device)
+            rc = lib.plane_sample_transpose_launch(
+                grid.data_ptr(), cot.data_ptr(), d.data_ptr(), *planes_shape,
+                grid[0].numel() // 2, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"the transpose of {path} did not launch: CUDA error {rc}")
+            return d
+
+        out[path] = transpose
+    return out
+
+
+def time_earlier(torch, ps, card, earlier, label, grid, cot, planes_shape):
+    """Check and time each earlier transpose, then the port's kernel again."""
+    if not earlier:
+        return
+    for path, transpose in earlier.items():
+        transpose_check(torch, ps, f"{label} ({path})", grid, cot, planes_shape, transpose)
+        ms = device_ms(lambda: transpose(grid, cot, planes_shape), "transpose_kernel(")
+        print(f"[8] B3 transpose {label} kernel of {path}: {ms:.4f} ms on {card}")
+    ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes_shape),
+                   "transpose_kernel(")
+    print(f"[8] B3 transpose {label} kernel, again after those: {ms:.4f} ms on {card}")
+
+
+def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     """Phases 7-10; returns the kernel records of B3 and its transpose."""
     import numpy as np
     import torch.nn.functional as F
@@ -297,6 +342,7 @@ def e4e_phases(torch, dev, card, ps, rmod):
     # ---------------------------------------------------------------- phase 7
     cuda_build.load("plane_sample")
     print_build("[7]", "plane_sample")
+    earlier = earlier_transposes(torch, ps, earlier_src)
 
     # ---------------------------------------------------------------- phase 8
     t0 = time.perf_counter()
@@ -376,7 +422,7 @@ def e4e_phases(torch, dev, card, ps, rmod):
             e = transpose_check(torch, ps, f"{label} S={S}", grid, cot, planes.shape)
             cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
             b_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
-                             "window_transpose_kernel")
+                             "transpose_kernel(")
             fill_ms = device_ms(lambda: torch.zeros(planes.shape, device=dev))
             b_plain = device_ms(lambda: ps.windowed_sample_transpose_reference(grid, cot,
                                                                             planes.shape))
@@ -388,6 +434,7 @@ def e4e_phases(torch, dev, card, ps, rmod):
                   f"zero fill {fill_ms:.4f} ms besides), plain {b_plain:.4f} ms, grid_sample "
                   f"backward {b_lib:.4f} ms (its zero fill included), bound {b_bound:.4f} ms "
                   f"({b_by}; {b_bytes / 1e6:.1f} MB) on {card}")
+            time_earlier(torch, ps, card, earlier, f"{label} S={S}", grid, cot, planes.shape)
             if label == "coarse":  # the JSON record holds the S=40 pass
                 # worst contention: every point of the pass on one 2x2 texel patch
                 patch = (torch.tensor([100.5, 120.5], device=dev) + 0.5) / (H * 0.5) - 1.0
@@ -395,8 +442,10 @@ def e4e_phases(torch, dev, card, ps, rmod):
                 transpose_check(torch, ps, f"one 2x2 patch S={S}", grid_1, cot, planes.shape)
                 one_ms = device_ms(lambda: ps.windowed_sample_transpose(grid_1, cot,
                                                                         planes.shape),
-                                   "window_transpose_kernel")
+                                   "transpose_kernel(")
                 print(f"[8] B3 transpose one 2x2 patch S={S} kernel {one_ms:.4f} ms on {card}")
+                time_earlier(torch, ps, card, earlier, f"one 2x2 patch S={S}", grid_1, cot,
+                             planes.shape)
                 del grid_1
                 records = [
                     dict(name="plane_sample", route="cuda",
@@ -516,7 +565,14 @@ def e4e_phases(torch, dev, card, ps, rmod):
     return records
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--earlier-src", action="append", default=[], metavar="PATH",
+                    help="a plane_sample.cu with the port's C interface whose transpose "
+                         "kernel phase 8 checks and times beside the port's")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -649,7 +705,7 @@ def main():
     del G, static, tex, cache, tex_cat
     torch.cuda.empty_cache()
 
-    kernels += e4e_phases(torch, dev, card, ps, rmod)
+    kernels += e4e_phases(torch, dev, card, ps, rmod, args.earlier_src)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

@@ -3,7 +3,7 @@
 //
 // `sample_kernel` replaces the Pallas kernel
 //    invertavatar_tpu/ops/pallas_plane_sample.py:_kernel (sample_planes_windowed_pallas).
-// `window_transpose_kernel` replaces the XLA transpose
+// `transpose_kernel` replaces the XLA transpose
 //    invertavatar_tpu/ops/plane_sample.py:windowed_sample_transpose (B3's backward).
 //
 // What they compute (see invertavatar_torch/ops/plane_sample.py for the plain
@@ -12,71 +12,47 @@
 //   forward:  out[n, m, :] = sum over the four bilinear taps of w_tap * plane_n[tap, :],
 //             taps outside the plane are zero; float32 sums, output in the
 //             payload's dtype (float32 or bfloat16).
-//   backward: d_plane[n, tap, :] += w_tap * cot[n, m, :] for every point, summed
-//             in float32 into a zeroed buffer (the sum order is not
+//   backward: d_plane[n, tap, :] += w_tap * cot[n, m, :] for every point, as
+//             float32 atomics into a zeroed buffer (the sum order is not
 //             deterministic).
 // The TPU kernel builds tent matrices over a texel window per (ray tile,
 // stratum) block and contracts them on the MXU, because TPU gathers are slow;
 // it drops taps outside the window. Here each point gathers its own four taps,
-// and the transpose spills a tap outside its block's window instead of
-// dropping it, so neither kernel drops a tap.
+// so there is no window and no such drop.
 //
-// Forward thread layout: C / VEC threads per point, each owning VEC channels =
-// 16 bytes of payload (4 float32 or 8 bfloat16), so the threads of one point
-// read a tap's C-channel row as one contiguous segment and write the output
-// row likewise: every load and store is a 16-byte vector, coalesced across the
-// point's threads. One launch covers all N planes of a render pass.
+// Thread layout: C / 4 threads per point in the transpose and C / VEC in the
+// forward, each owning 16 bytes of payload (4 float32 or 8 bfloat16), so the
+// threads of one point read a tap's C-channel row as one contiguous segment
+// and write it likewise: every load, store and atomic is a 16-byte vector,
+// coalesced across the point's threads. One launch covers all N planes of a
+// render pass.
 //
 // What bounds them on an H100 at the e4e shapes (N = 3 planes of 256² x 32,
-// 128² rays, 40 coarse or 24 fine samples): bytes. The forward at S=40 writes
+// 128² rays, 40 coarse or 24 fine samples): the forward, bytes. It writes
 // 252 MB of float32 features and reads 16 MB of grid and 25 MB of planes
 // (about 0.087 ms at 3.35 TB/s) for ~0.5 GFLOP. The backward reads the 252 MB
-// cotangent and 16 MB of grid and writes 25 MB of d-planes. Its ~250 M
-// weight x cotangent products land on the few hundred thousand texels of the
-// face region, dozens per texel: one float32 global atomic each queues on the
-// same addresses in L2 (all points on one 2x2 patch took ~48 ms that way), and
-// even one 16-byte vector atomic per tap is L2-bound (~0.35 ms at the e4e
-// shapes, ~9 ms on one patch). So the transpose sums them in shared memory
-// first:
-//   * a block takes one plane's th x tw ray tile x sg consecutive strata x 32
-//     channels (the plan: ops/plane_sample.py:transpose_block_plan). On the xy
-//     plane the strata of a ray hit the same texels; on the xz and zx planes
-//     the rows of a tall tile do;
-//   * it reduces its points' taps to a bounding box, and the box (clipped to
-//     the window's texels) becomes a float32 [wy * wx, cw] window in shared
-//     memory;
-//   * a warp takes 32 points at a time: one lane per point finds the point's
-//     taps and stages them in shared memory, then G lanes per point (8 for 32
-//     channels) each load four of its channels as one 16-byte vector and add
-//     them to the window;
-//   * a float atomic on shared memory is a compare-and-swap loop on this card,
-//     and two lanes on one word retry it: each lane adds its four channels in
-//     four rounds, rotated by its point's place in the warp, so the points of
-//     one instruction touch different words and banks even on one texel;
-//   * a tap outside the window (a box larger than the window) spills to a
-//     16-byte global vector atomic, so any grid gives the exact transpose;
-//   * the window is flushed once: each nonzero 4-channel vector is one 16-byte
-//     global vector reduction (atomicAdd on float4, sm_90).
-// What holds it now is the shared-memory compare-and-swap rate: at the e4e
-// shapes the adds take ~0.25 ms of ~0.39 ms; without them the kernel takes
-// ~0.14 ms against a byte bound of 0.087 ms (PERF.md).
+// cotangent and 16 MB of grid and writes 25 MB of d-planes, but its ~63 M
+// atomics (one 16-byte float4 atomicAdd per tap and thread, sm_90) land on the
+// few hundred thousand texels of the face region, dozens per texel, so it
+// waits on the L2's atomic units rather than on device memory. One float4
+// atomic in place of four scalar ones cut it from ~1.3 ms to ~0.35 ms at S=40
+// on an H100. Summing a block's taps in a shared-memory window first, and
+// flushing the window once, was slower on the renderer's grids (~0.39 ms) and
+// only won when every point hit one 2x2 texel patch (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// The bilinear origin (y0, x0) of a point and the weights of its four taps
-// (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1). The coordinate
-// transform is rounded step by step (no fused multiply-add) to match the plain
-// version's float32 arithmetic. Coordinates far outside the plane (or NaN)
-// would overflow int: they get the origin (-2, -2), whose taps all lie outside.
-__device__ __forceinline__ void tap_origin(float2 p, int H, int W, int& y0, int& x0,
-                                           float (&w)[4]) {
+// The four bilinear taps of a point: flat texel index (-1 outside the plane)
+// and weight. The coordinate transform is rounded step by step (no fused
+// multiply-add) to match the plain version's float32 arithmetic.
+__device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, int (&idx)[4],
+                                              float (&w)[4]) {
   const float gx = __fsub_rn(__fmul_rn(__fadd_rn(p.x, 1.0f), W * 0.5f), 0.5f);
   const float gy = __fsub_rn(__fmul_rn(__fadd_rn(p.y, 1.0f), H * 0.5f), 0.5f);
   const float x0f = floorf(gx), y0f = floorf(gy);
@@ -85,20 +61,13 @@ __device__ __forceinline__ void tap_origin(float2 p, int H, int W, int& y0, int&
   w[1] = wx * (1.0f - wy);
   w[2] = (1.0f - wx) * wy;
   w[3] = wx * wy;
+  // coordinates far outside the plane (or NaN) would overflow int: no taps
   const bool finite = fabsf(x0f) < 1e8f && fabsf(y0f) < 1e8f;
-  x0 = finite ? (int)x0f : -2;
-  y0 = finite ? (int)y0f : -2;
-}
-
-// The four taps as flat texel indices (-1 outside the plane) and weights.
-__device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, int (&idx)[4],
-                                              float (&w)[4]) {
-  int y0, x0;
-  tap_origin(p, H, W, y0, x0, w);
+  const int x0 = finite ? (int)x0f : -2, y0 = finite ? (int)y0f : -2;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int y = y0 + (k >> 1), x = x0 + (k & 1);
-    idx[k] = (y >= 0 && y < H && x >= 0 && x < W) ? y * W + x : -1;
+    idx[k] = (finite && y >= 0 && y < H && x >= 0 && x < W) ? y * W + x : -1;
   }
 }
 
@@ -166,185 +135,28 @@ __global__ void __launch_bounds__(kThreads)
   out[point * vecs + lane] = pack(acc);
 }
 
-// The transpose: one block per (blockIdx.x: a th x tw tile of the rows x cols
-// ray image and a group of sg consecutive strata; blockIdx.y: the plane;
-// blockIdx.z: 32 channels). Each warp takes 32 points at a time: first one
-// lane per point finds the point's offset and its taps, encoded for the
-// window, and stages them in shared memory; then G lanes (2, 4 or 8, at
-// least a quarter of the chunk's cw channels) take each staged point, four
-// channels each.
-
-// Staged tap codes: >= 0 the tap's texel in the window, kNoTap outside the
-// plane, <= kSpill - t a tap at plane texel t outside the window.
-constexpr int kNoTap = -1;
-constexpr int kSpill = -2;
-
-template <int G>
 __global__ void __launch_bounds__(kThreads)
-    window_transpose_kernel(const float2* __restrict__ grid, const float4* __restrict__ cot,
-                            float* __restrict__ d_planes, int H, int W, int C, int R, int S,
-                            int cols, int th, int tw, int sg, int cap) {
-  extern __shared__ float4 win4[];  // the window [wy * wx texels][cw channels], float32
-  float* win = reinterpret_cast<float*>(win4);
-  __shared__ int box[4];  // -ymin, ymax, -xmin, xmax of the block's taps
-  constexpr int kWarps = kThreads / 32;
-  __shared__ int4 staged_tap[kWarps][32];
-  __shared__ float4 staged_w[kWarps][32];
-  __shared__ int staged_point[kWarps][32];
+    transpose_kernel(const float2* __restrict__ grid, const float4* __restrict__ cot,
+                     float* __restrict__ d_planes, int H, int W, int C, long long M,
+                     long long total) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int vecs = C / 4;
+  const long long point = t / vecs;
+  const int lane = (int)(t - point * vecs);
+  const long long n = point / M;
 
-  const int n = blockIdx.y;
-  const int c0 = blockIdx.z * 32;
-  const int cw = min(32, C - c0);
-  const int vecs = cw / 4;
-  const int groups = (S + sg - 1) / sg;
-  const int tiles_x = (cols + tw - 1) / tw;
-  const int tile = blockIdx.x / groups;
-  const int r0 = tile / tiles_x * th, q0 = tile % tiles_x * tw, s0 = blockIdx.x % groups * sg;
-  const int ntw = min(tw, cols - q0);
-  const int rays = min(th, R / cols - r0) * ntw;
-  const int P = rays * min(sg, S - s0);
-  // point p of the block is stratum s0 + p / rays of its ray r = p % rays, so
-  // neighbouring p are neighbouring rays of one stratum; `point` gives its
-  // offset from the block's first point
-  const long long first = ((long long)n * R + (long long)r0 * cols + q0) * S + s0;
-  auto point = [&](int p) {
-    const int k = p / rays, r = p - k * rays;
-    const int i = r / ntw;
-    return (i * cols + (r - i * ntw)) * S + k;
-  };
-
-  // 1. the box of the block's taps inside the plane
-  if (threadIdx.x < 4) box[threadIdx.x] = INT_MIN;
-  __syncthreads();
-  int b[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    int y0, x0;
-    float w[4];
-    tap_origin(grid[first + point(p)], H, W, y0, x0, w);
-    if (y0 < -1 || y0 >= H || x0 < -1 || x0 >= W) continue;  // no tap inside
-    b[0] = max(b[0], -max(y0, 0));
-    b[1] = max(b[1], min(y0 + 1, H - 1));
-    b[2] = max(b[2], -max(x0, 0));
-    b[3] = max(b[3], min(x0 + 1, W - 1));
-  }
+  int idx[4];
+  float w[4];
+  bilinear_taps(grid[point], H, W, idx, w);
+  const float4 g = cot[point * vecs + lane];
+  float* plane = d_planes + n * H * W * C + lane * 4;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int v = __reduce_max_sync(0xffffffffu, b[k]);
-    if ((threadIdx.x & 31) == 0 && v != INT_MIN) atomicMax(&box[k], v);
+    if (idx[k] < 0) continue;
+    atomicAdd(reinterpret_cast<float4*>(plane + (long long)idx[k] * C),
+              make_float4(w[k] * g.x, w[k] * g.y, w[k] * g.z, w[k] * g.w));
   }
-  __syncthreads();
-  if (box[1] == INT_MIN) return;  // no tap of the block lies inside the plane
-
-  // the window: the box, clipped to `cap` texels (whole rows of its width)
-  const int ymin = -box[0], xmin = -box[2];
-  const int wx = min(box[3] - xmin + 1, cap);
-  const int wy = min(box[1] - ymin + 1, cap / wx);
-  const int nvec = wy * wx * vecs;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) win4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-
-  // 2. w * cot of every tap into the window; a tap outside it spills to the
-  //    planes as one 16-byte vector reduction
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kPerStep = 32 / G;  // points a warp takes per step
-  const int g = lane % G;           // this lane's 4-channel group
-  const int slot = lane / G;        // and its point's place in a step
-  const bool on = g < vecs;
-  const float4* cot_g = cot + c0 / 4 + g;
-  float4* plane = reinterpret_cast<float4*>(d_planes + (long long)n * H * W * C + c0) + g;
-  for (int p0 = warp * 32; p0 < P; p0 += kThreads) {
-    {  // stage: lane = point
-      const int p = p0 + lane;
-      int t[4] = {kNoTap, kNoTap, kNoTap, kNoTap};
-      float w[4] = {0.f, 0.f, 0.f, 0.f};
-      int off = 0;
-      if (p < P) {
-        off = point(p);
-        int y0, x0;
-        tap_origin(grid[first + off], H, W, y0, x0, w);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int y = y0 + (k >> 1), x = x0 + (k & 1);
-          if (y < 0 || y >= H || x < 0 || x >= W) continue;
-          const unsigned ly = y - ymin, lx = x - xmin;
-          t[k] = ly < (unsigned)wy && lx < (unsigned)wx ? (int)(ly * wx + lx)
-                                                        : kSpill - (y * W + x);
-        }
-      }
-      staged_tap[warp][lane] = make_int4(t[0], t[1], t[2], t[3]);
-      staged_w[warp][lane] = make_float4(w[0], w[1], w[2], w[3]);
-      staged_point[warp][lane] = off;
-    }
-    __syncwarp();
-    // accumulate: G lanes per point, four channels each; every lane's
-    // cotangent loads are issued before any is used
-    float4 v[G];
-#pragma unroll
-    for (int s = 0; s < G; ++s) {
-      const int j = s * kPerStep + lane / G;
-      v[s] = on && p0 + j < P ? cot_g[(first + staged_point[warp][j]) * (C / 4)]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int s = 0; s < G; ++s) {
-      const int j = s * kPerStep + lane / G;
-      const int4 t = staged_tap[warp][j];
-      const float4 w = staged_w[warp][j];
-      const int tk[4] = {t.x, t.y, t.z, t.w};
-      const float wk[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!on || tk[k] == kNoTap) continue;
-        const float4 a = make_float4(wk[k] * v[s].x, wk[k] * v[s].y, wk[k] * v[s].z,
-                                     wk[k] * v[s].w);
-        if (tk[k] >= 0) {
-          // round r adds channel (r + slot) % 4 of the lane's four: the
-          // kPerStep points of a step then use different channels, so their
-          // lanes hit different banks and never one address together
-          float* dst = win + 4 * (tk[k] * vecs + g);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int ch = (r + slot) & 3;
-            atomicAdd(dst + ch, ch == 0 ? a.x : ch == 1 ? a.y : ch == 2 ? a.z : a.w);
-          }
-        } else {
-          atomicAdd(plane + (long long)(kSpill - tk[k]) * (C / 4), a);
-        }
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // 3. the flush: each nonzero 4-channel vector of the window is added to the
-  //    planes once, as one 16-byte vector reduction
-  float4* base = reinterpret_cast<float4*>(d_planes + (long long)n * H * W * C + c0);
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const float4 a = win4[i];
-    if (a.x == 0.f && a.y == 0.f && a.z == 0.f && a.w == 0.f) continue;
-    const int t = i / vecs;
-    const int y = ymin + t / wx, x = xmin + t % wx;
-    atomicAdd(base + ((long long)y * W + x) * (C / 4) + (i - t * vecs), a);
-  }
-}
-
-template <int G>
-int launch_window(dim3 blocks, size_t smem, cudaStream_t s, const float2* grid,
-                  const float4* cot, float* d_planes, int H, int W, int C, int R, int S,
-                  int cols, int th, int tw, int sg, int cap) {
-  // a window above 48 KB needs the opt-in, and the largest shared-memory
-  // carveout keeps three ~74 KB blocks on each SM
-  cudaError_t e = cudaFuncSetAttribute(
-      window_transpose_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(window_transpose_kernel<G>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  }
-  if (e != cudaSuccess) return (int)e;
-  window_transpose_kernel<G><<<blocks, kThreads, smem, s>>>(grid, cot, d_planes, H, W, C, R, S,
-                                                            cols, th, tw, sg, cap);
-  return (int)cudaGetLastError();
 }
 
 unsigned int blocks_for(long long threads) {
@@ -374,28 +186,14 @@ extern "C" int plane_sample_launch(const void* planes, const void* grid, void* o
   return (int)cudaGetLastError();
 }
 
-// d_planes must be zeroed float32 [N, H, W, C]; cot float32 [N, R, S, C] and
-// grid [N, R, S, 2], the R rays a rows x cols image (R = rows * cols). The
-// block plan (th, tw, sg, cap: window texels) comes from the wrapper
-// (ops/plane_sample.py:transpose_block_plan); cap * min(C, 32) floats must fit
-// in a block's shared memory.
+// d_planes must be zeroed float32 [N, H, W, C]; cot float32 [N, M, C].
 extern "C" int plane_sample_transpose_launch(const void* grid, const void* cot, void* d_planes,
-                                             int N, int H, int W, int C, int R, int S, int cols,
-                                             int th, int tw, int sg, int cap, void* stream) {
-  if ((long long)N * R * S == 0) return 0;
-  const long long tiles = (long long)((R / cols + th - 1) / th) * ((cols + tw - 1) / tw);
-  const dim3 blocks((unsigned int)(tiles * ((S + sg - 1) / sg)), N, (C + 31) / 32);
-  const int cw = C < 32 ? C : 32;
-  const size_t smem = (size_t)cap * cw * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* g = static_cast<const float2*>(grid);
-  const auto* c = static_cast<const float4*>(cot);
-  auto* d = static_cast<float*>(d_planes);
-  if (cw <= 8) {
-    return launch_window<2>(blocks, smem, s, g, c, d, H, W, C, R, S, cols, th, tw, sg, cap);
-  }
-  if (cw <= 16) {
-    return launch_window<4>(blocks, smem, s, g, c, d, H, W, C, R, S, cols, th, tw, sg, cap);
-  }
-  return launch_window<8>(blocks, smem, s, g, c, d, H, W, C, R, S, cols, th, tw, sg, cap);
+                                             int N, int H, int W, int C, long long M,
+                                             void* stream) {
+  const long long total = (long long)N * M * (C / 4);
+  if (total == 0) return 0;
+  transpose_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(grid), static_cast<const float4*>(cot),
+      static_cast<float*>(d_planes), H, W, C, M, total);
+  return (int)cudaGetLastError();
 }

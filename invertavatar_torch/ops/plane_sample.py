@@ -16,12 +16,9 @@ passes (ray-tile × depth-stratum points) sample the planes here:
 
 The TPU formulation cuts the points into (tile, stratum) blocks and drops
 taps outside a per-block window, because TPU gathers are slow. The CUDA
-forward (`csrc/plane_sample.cu`) gathers each point's taps directly. The
-CUDA transpose sums blocks of points in shared-memory windows
-(`transpose_block_plan`, emulated by `windowed_sample_transpose_blocked`)
-and spills a tap outside its window to global memory. So both are exact
-where a footprint overflows a window. The TPU window is still computed
-(`coarse_window_for`), because the renderer routes on it.
+kernels (`csrc/plane_sample.cu`) gather each point's taps directly, so they
+need no window and are exact where a footprint overflows one. The window is
+still computed (`coarse_window_for`), because the renderer routes on it.
 
 Each wrapper runs its plain PyTorch version (`*_reference`, same module) when
 its tensors lie on the CPU and launches the kernel when they lie on a CUDA
@@ -32,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
@@ -60,32 +57,22 @@ def coarse_window_rect(resolution: int, th: int, tw: int) -> Tuple[int, int]:
 # ------------------------------------------------------------ plain versions
 
 
-def _tap_rows(grid: torch.Tensor, H: int, W: int):
-    """The four bilinear taps of each point as (row, column, weight, inside)
-    tuples. grid `[..., 2]` plane-space xy in [-1, 1] (align_corners=False).
-    A point whose coordinates are not finite or lie beyond ±1e8 texels has
-    no tap inside the plane, as in the kernels."""
+def _taps(grid: torch.Tensor, H: int, W: int):
+    """The four bilinear taps of each point: (flat texel index, weight) pairs,
+    weights zeroed for taps outside the plane (zeros padding). grid `[N, M, 2]`
+    plane-space xy in [-1, 1] (align_corners=False)."""
     gx = (grid[..., 0].float() + 1.0) * (W * 0.5) - 0.5
     gy = (grid[..., 1].float() + 1.0) * (H * 0.5) - 0.5
     x0f, y0f = torch.floor(gx), torch.floor(gy)
     wx, wy = gx - x0f, gy - y0f
-    finite = (x0f.abs() < 1e8) & (y0f.abs() < 1e8)
-    x0 = torch.where(finite, x0f, -2.0).long()
-    y0 = torch.where(finite, y0f, -2.0).long()
+    x0, y0 = x0f.long(), y0f.long()
     out = []
     for dy, dx, w in ((0, 0, (1 - wx) * (1 - wy)), (0, 1, wx * (1 - wy)),
                       (1, 0, (1 - wx) * wy), (1, 1, wx * wy)):
         yi, xi = y0 + dy, x0 + dx
-        inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-        out.append((yi, xi, w, inside))
+        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        out.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), w * valid))
     return out
-
-
-def _taps(grid: torch.Tensor, H: int, W: int):
-    """The four bilinear taps of each point: (flat texel index, weight) pairs,
-    weights zeroed for taps outside the plane (zeros padding)."""
-    return [(yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), torch.where(inside, w, 0.0))
-            for yi, xi, w, inside in _tap_rows(grid, H, W)]
 
 
 def bilinear_sample_reference(planes: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -123,118 +110,6 @@ def windowed_sample_transpose_reference(grid: torch.Tensor, cot: torch.Tensor,
     return out.reshape(N, H, W, C)
 
 
-# ------------------------------------------------------- the transpose's blocks
-
-# A block of the transpose kernel takes one plane's TILE ray tile (rows x
-# columns of the render) x STRATA consecutive samples x 32 channels, and
-# accumulates them in a shared-memory window of WINDOW_BYTES.
-TRANSPOSE_TILE = (32, 4)
-TRANSPOSE_STRATA = 4
-TRANSPOSE_WINDOW_BYTES = 64 * 1024
-
-
-class TransposePlan(NamedTuple):
-    """The kernel's cut of a grid `[N, R, S, 2]`: the R rays form a rows x
-    cols image (res x res for the renderer's square grids, else one row), a
-    block takes a th x tw ray tile x sg strata of one plane and at most 32
-    channels, and its window holds `window_texels` texels of those channels."""
-    R: int
-    S: int
-    rows: int
-    cols: int
-    th: int
-    tw: int
-    sg: int
-    window_texels: int
-
-
-def transpose_block_plan(grid_shape, C: int,
-                         window_bytes: int = TRANSPOSE_WINDOW_BYTES) -> TransposePlan:
-    """The block plan for a grid of shape `[N, ..., 2]`: the last axis but
-    one is the strata (S = 1 for a `[N, M, 2]` grid), the axes between are
-    the rays."""
-    S = int(grid_shape[-2]) if len(grid_shape) >= 4 else 1
-    R = math.prod(int(d) for d in grid_shape[1:-1]) // S
-    th, tw = TRANSPOSE_TILE
-    res = math.isqrt(R)
-    if res * res == R:
-        rows, cols = res, res
-    else:
-        rows, cols, th, tw = 1, R, 1, th * tw
-    return TransposePlan(R, S, rows, cols, max(1, min(th, rows)), max(1, min(tw, cols)),
-                         max(1, min(TRANSPOSE_STRATA, S)), window_bytes // (4 * min(C, 32)))
-
-
-def windowed_sample_transpose_blocked(grid: torch.Tensor, cot: torch.Tensor, planes_shape,
-                                      window_bytes: int = TRANSPOSE_WINDOW_BYTES):
-    """Plain emulation of the transpose kernel's block walk, with the same
-    result as `windowed_sample_transpose_reference` up to the order of sums.
-
-    Each block finds the box of its points' taps; its window is the box,
-    clipped to `window_texels` (full rows of the box's width, from its top
-    left corner). Taps inside the window are summed there and the window is
-    added to the planes once; the others spill to the planes directly.
-    Returns (d planes, stats): stats counts blocks, window texels, the taps
-    inside the plane and those that spilled."""
-    N, H, W, C = planes_shape
-    plan = transpose_block_plan(tuple(grid.shape), C, window_bytes)
-    R, S = plan.R, plan.S
-    dev = cot.device
-    cot = cot.float().reshape(N, R, S, C)
-    tiles_x = -(-plan.cols // plan.tw)
-    tiles = -(-plan.rows // plan.th) * tiles_x
-    groups = -(-S // plan.sg)
-    ray = torch.arange(R, device=dev)
-    tile = (ray // plan.cols // plan.th) * tiles_x + (ray % plan.cols) // plan.tw
-    block = (torch.arange(N, device=dev)[:, None, None] * (tiles * groups)
-             + tile[None, :, None] * groups
-             + (torch.arange(S, device=dev) // plan.sg)[None, None, :])  # [N, R, S]
-    nb = N * tiles * groups
-    taps = _tap_rows(grid.reshape(N, R, S, 2), H, W)
-
-    # the box of each block's taps inside the plane (blocks with none: empty)
-    big = 1 << 40
-    lo_y = torch.full((nb,), big, device=dev)
-    lo_x, hi_y, hi_x = lo_y.clone(), -lo_y, -lo_y
-    for yi, xi, _, inside in taps:
-        b = block[inside]
-        lo_y.scatter_reduce_(0, b, yi[inside], "amin")
-        lo_x.scatter_reduce_(0, b, xi[inside], "amin")
-        hi_y.scatter_reduce_(0, b, yi[inside], "amax")
-        hi_x.scatter_reduce_(0, b, xi[inside], "amax")
-    empty = lo_y == big
-    wx = torch.where(empty, 0, (hi_x - lo_x + 1).clamp(max=plan.window_texels))
-    wy = torch.where(empty, 0, torch.minimum(hi_y - lo_y + 1,
-                                             plan.window_texels // wx.clamp(min=1)))
-    area = wy * wx
-    start = torch.cumsum(area, 0) - area  # each block's first slot in `win`
-
-    out = torch.zeros((N * H * W, C), dtype=torch.float32, device=dev)
-    win = torch.zeros((int(area.sum()), C), dtype=torch.float32, device=dev)
-    plane_base = torch.arange(N, device=dev)[:, None, None] * (H * W)
-    n_taps = n_spilled = 0
-    for yi, xi, w, inside in taps:
-        ly, lx = yi - lo_y[block], xi - lo_x[block]
-        in_win = inside & (ly < wy[block]) & (lx < wx[block])
-        spill = inside & ~in_win
-        val = cot * w[..., None]
-        win.index_add_(0, (start[block] + ly * wx[block] + lx)[in_win], val[in_win])
-        out.index_add_(0, (plane_base + yi * W + xi)[spill], val[spill])
-        n_taps += int(inside.sum())
-        n_spilled += int(spill.sum())
-
-    # the flush: each window slot back to its texel
-    slot_block = torch.repeat_interleave(torch.arange(nb, device=dev), area)
-    t = torch.arange(win.shape[0], device=dev) - start[slot_block]
-    wx_s = wx[slot_block]
-    texel = ((slot_block // (tiles * groups)) * (H * W)
-             + (lo_y[slot_block] + t // wx_s) * W + lo_x[slot_block] + t % wx_s)
-    out.index_add_(0, texel, win)
-    stats = {"blocks": nb, "window_texels": int(area.sum()), "taps": n_taps,
-             "spilled_taps": n_spilled}
-    return out.reshape(N, H, W, C), stats
-
-
 # ------------------------------------------------------------------- kernels
 
 _CU_SOURCE = "plane_sample"
@@ -247,7 +122,7 @@ def _lib() -> ctypes.CDLL:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.plane_sample_launch.argtypes = [P, P, P, I, I, I, I, L, I, P]
         lib.plane_sample_launch.restype = I
-        lib.plane_sample_transpose_launch.argtypes = [P, P, P] + [I] * 11 + [P]
+        lib.plane_sample_transpose_launch.argtypes = [P, P, P, I, I, I, I, L, P]
         lib.plane_sample_transpose_launch.restype = I
         lib._typed = True
     return lib
@@ -317,9 +192,9 @@ def windowed_sample_transpose(grid: torch.Tensor, cot: torch.Tensor, planes_shap
     """Transpose of `sample_planes_windowed` with respect to the planes.
 
     grid `[N, R, S, 2]`, cot `[N, R, S, C]` -> float32 `[N, H, W, C]`. The
-    kernel sums each block's taps in a shared-memory window and adds the
-    window to the planes with float32 atomics (`transpose_block_plan`), so
-    the order of the sums (and the last bits) changes from run to run."""
+    kernel adds each tap's share of four channels with one 16-byte float32
+    vector atomic, so the order of the sums (and the last bits) changes from
+    run to run."""
     N, H, W, C = (int(s) for s in planes_shape)
     _check_shapes((N, H, W, C), grid)
     _check(tuple(cot.shape) == (*grid.shape[:-1], C), "cot must be [N, R, S, C] like the output")
@@ -329,13 +204,12 @@ def windowed_sample_transpose(grid: torch.Tensor, cot: torch.Tensor, planes_shap
     _check(grid.device.type == "cuda" and cot.device == grid.device,
            f"expected CUDA tensors on one device, got {grid.device} and {cot.device}")
     _check(grid.dtype == torch.float32, "grid must be float32")
-    plan = transpose_block_plan(tuple(grid.shape), C)
     grid = _aligned(grid.detach())
     cot = _aligned(cot.detach().float())
     out = torch.zeros((N, H, W, C), device=grid.device, dtype=torch.float32)
-    rc = _lib().plane_sample_transpose_launch(
-        grid.data_ptr(), cot.data_ptr(), out.data_ptr(), N, H, W, C, plan.R, plan.S, plan.cols,
-        plan.th, plan.tw, plan.sg, plan.window_texels, _stream())
+    M = grid[0].numel() // 2
+    rc = _lib().plane_sample_transpose_launch(grid.data_ptr(), cot.data_ptr(), out.data_ptr(),
+                                              N, H, W, C, M, _stream())
     _raise_on(rc, "plane_sample_transpose")
     windowed_sample_transpose.launches += 1
     return out

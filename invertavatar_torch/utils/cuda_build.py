@@ -35,25 +35,27 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, src: Path | None = None) -> Path:
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless an up-to-date library exists."""
-    out = library_path(name)
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile `csrc/<name>.cu` (or the source `src`, built as `name`) unless
+    an up-to-date library exists."""
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
+    out = library_path(name, src)
     if out.exists():
         BUILD_INFO.setdefault(name, (0.0, "(cached)"))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     BUILD_INFO[name] = (time.perf_counter() - t0, proc.stderr.strip())
     return out

@@ -7,11 +7,10 @@ x 8 channels, 32² rays, tile 8, window 32, the tile-coherent grid of
 tests/test_pallas_interpret.py), where the windowed TPU formulation is the
 exact bilinear sample that the port computes.
 
-The transpose kernel's block walk (shared-memory windows that spill to global
-memory) is emulated on the CPU by `windowed_sample_transpose_blocked`; the
-cases of `_transpose_case` (one 2x2 patch, edges with NaN and ±1e9, windows
-too small for their box, a ray count that is not a square, C = 8 and 32) run
-through the emulation here and through the kernel on a CUDA device.
+The cases of `_transpose_case` (one 2x2 patch, edges with NaN, ±inf and
+±1e9, points all over a large plane, a ray count that is not a square, C = 8
+and 32) run through the plain transpose here, against a numpy `np.add.at`
+transpose, and through the kernel on a CUDA device.
 
 JAX is imported inside the tests that use it, so that the CUDA tests also run
 on a machine without JAX:
@@ -153,9 +152,9 @@ def test_cuda_kernels_match_plain_versions():
         assert torch.allclose(k, p, rtol=1e-4, atol=1e-5)
 
 
-# ------------------------------------------------------- the transpose's blocks
+# ------------------------------------------------------- the transpose's cases
 
-TRANSPOSE_CASES = ["c8", "c32", "one_patch", "edges_nan", "spill", "rays_not_square"]
+TRANSPOSE_CASES = ["c8", "c32", "one_patch", "edges_nan", "scattered", "rays_not_square"]
 
 
 def _transpose_case(name, rng):
@@ -172,7 +171,7 @@ def _transpose_case(name, rng):
         flat = grid.reshape(-1)
         for v in (np.nan, np.inf, -np.inf, 1e9, -1e9):
             flat[rng.choice(flat.size, 300, replace=False)] = v
-    elif name == "spill":  # points all over a 256² plane: boxes wider than any window
+    elif name == "scattered":  # points all over a 256² plane, few sharing a texel
         h, c = 256, 32
         grid = rng.uniform(-1, 1, (n, res * res, s, 2)).astype(np.float32)
     elif name == "rays_not_square":
@@ -181,11 +180,20 @@ def _transpose_case(name, rng):
     return torch.from_numpy(grid), torch.from_numpy(cot), (n, h, h, c)
 
 
+def _without_non_finite(grid):
+    """The grid with its non-finite points moved far outside the plane: the
+    kernel gives such points no taps, where the plain version (like JAX)
+    spreads NaN."""
+    return torch.where(torch.isfinite(grid).all(-1, keepdim=True), grid, 4.0)
+
+
 def _assert_transpose_close(out, grid, cot, shape):
-    """|k - p| <= 1e-5·Σw|cot| + 1e-7 against the plain `index_add_` version:
-    the same float32 products summed in another order."""
-    p = ps.windowed_sample_transpose_reference(grid.cpu(), cot.cpu(), shape)
-    m = ps.windowed_sample_transpose_reference(grid.cpu(), cot.cpu().abs(), shape)
+    """|k - p| <= 1e-5·Σw|cot| + 1e-7 against the plain `index_add_` version
+    on the grid without its non-finite points: the same float32 products
+    summed in another order."""
+    grid = _without_non_finite(grid.cpu())
+    p = ps.windowed_sample_transpose_reference(grid, cot.cpu(), shape)
+    m = ps.windowed_sample_transpose_reference(grid, cot.cpu().abs(), shape)
     out = out.cpu()
     assert out.shape == p.shape and out.dtype == torch.float32
     bad = int(((out - p).abs() > 1e-5 * m + 1e-7).sum())
@@ -193,54 +201,44 @@ def _assert_transpose_close(out, grid, cot, shape):
     assert m.sum() > 0
 
 
-@pytest.mark.parametrize("grid_shape, C, plan", [
-    ((3, 128 * 128, 40, 2), 32, (128 * 128, 40, 128, 128, 32, 4, 4, 512)),
-    ((3, 128 * 128, 24, 2), 32, (128 * 128, 24, 128, 128, 32, 4, 4, 512)),
-    ((3, 32 * 32, 4, 2), 8, (1024, 4, 32, 32, 32, 4, 4, 2048)),
-    ((3, 1000, 5, 2), 16, (1000, 5, 1, 1000, 1, 128, 4, 1024)),
-    ((2, 4 * 4, 2, 2), 64, (16, 2, 4, 4, 4, 4, 2, 512)),
-    ((2, 300, 2), 8, (300, 1, 1, 300, 1, 128, 1, 2048)),
-])
-def test_transpose_block_plan(grid_shape, C, plan):
-    """The block plan the wrapper passes to the kernel: square ray grids are
-    cut into 32 x 4 ray tiles x 4 strata, others into runs of 128 rays; tiles
-    and groups shrink to the grid; the window holds 64 KB of <= 32 channels."""
-    got = ps.transpose_block_plan(grid_shape, C)
-    assert tuple(got) == plan
-    assert got.rows * got.cols == got.R and got.window_texels * 4 * min(C, 32) <= 64 * 1024
+def _numpy_transpose(grid, cot, shape):
+    """d planes by `np.add.at`, summed in float64, with the plain version's
+    float32 tap weights (each step rounded to float32)."""
+    n, h, w, c = shape
+    grid = grid.reshape(n, -1, 2)
+    cot = cot.reshape(n, -1, c).astype(np.float64)
+    one, half = np.float32(1), np.float32(0.5)
+    gx = (grid[..., 0] + one) * np.float32(w * 0.5) - half
+    gy = (grid[..., 1] + one) * np.float32(h * 0.5) - half
+    x0f, y0f = np.floor(gx), np.floor(gy)
+    wx, wy = gx - x0f, gy - y0f
+    out = np.zeros(shape, np.float64)
+    plane = np.broadcast_to(np.arange(n)[:, None], gx.shape)
+    for dy, dx, wt in ((0, 0, (one - wx) * (one - wy)), (0, 1, wx * (one - wy)),
+                       (1, 0, (one - wx) * wy), (1, 1, wx * wy)):
+        y, x = y0f + dy, x0f + dx
+        ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        np.add.at(out, (plane[ok], y[ok].astype(np.int64), x[ok].astype(np.int64)),
+                  wt[ok, None].astype(np.float64) * cot[ok])
+    return out
 
 
 @pytest.mark.parametrize("case", TRANSPOSE_CASES)
-def test_blocked_transpose_matches_plain(case):
-    """The emulated block walk against the plain `index_add_` version on every
-    case; most taps of the spill case spill, none of the one-patch case."""
+def test_transpose_cases_match_numpy(case):
+    """The wrapper's CPU route (the plain `index_add_` version) on each
+    transpose case against `_numpy_transpose`, |k - p| <= 1e-5·Σw|cot| +
+    1e-7, the non-finite points of the edge case taken out; no launch."""
     grid, cot, shape = _transpose_case(case, np.random.RandomState(7))
-    out, stats = ps.windowed_sample_transpose_blocked(grid, cot, shape)
-    _assert_transpose_close(out, grid, cot, shape)
-    assert stats["taps"] > 0
-    if case == "spill":
-        assert stats["spilled_taps"] > stats["taps"] // 2, stats
-    if case == "one_patch":
-        assert stats["spilled_taps"] == 0 and stats["window_texels"] == 4 * stats["blocks"], stats
-
-
-@pytest.mark.parametrize("window_bytes", [ps.TRANSPOSE_WINDOW_BYTES, 1024])
-def test_blocked_transpose_matches_jax(window_bytes):
-    """The emulated block walk against JAX's `windowed_sample_transpose` on
-    `test_transpose_matches_jax`'s inputs, 1e-4, with the kernel's window and
-    with one of 32 texels, which spills most taps."""
-    import jax
-    import jax.numpy as jnp
-
-    from invertavatar_tpu.ops.plane_sample import windowed_sample_transpose
-
-    planes, grid, cot = _inputs(2)
-    ref = jax.jit(lambda g, c: windowed_sample_transpose(
-        g, c, planes.shape, RES, TILE, WINDOW))(jnp.asarray(grid), jnp.asarray(cot))
-    out, stats = ps.windowed_sample_transpose_blocked(
-        torch.from_numpy(grid), torch.from_numpy(cot), planes.shape, window_bytes)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-5)
-    assert (stats["spilled_taps"] > stats["taps"] // 2) == (window_bytes == 1024), stats
+    grid = _without_non_finite(grid)
+    launches = ps.windowed_sample_transpose.launches
+    out = ps.windowed_sample_transpose(grid, cot, shape)
+    assert ps.windowed_sample_transpose.launches == launches
+    assert out.shape == shape and out.dtype == torch.float32
+    p = _numpy_transpose(grid.numpy(), cot.numpy(), shape)
+    m = _numpy_transpose(grid.numpy(), np.abs(cot.numpy()), shape)
+    err = np.abs(out.numpy() - p)
+    assert (err <= 1e-5 * m + 1e-7).all(), err.max()
+    assert m.sum() > 0
 
 
 @pytest.mark.cuda
