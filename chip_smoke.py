@@ -38,6 +38,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      Igen target on B3 (fp32) and the student renders on B3 + its transpose;
      warm-up and timed steps; B3 must launch 6 times and its transpose 4
      times per step
+ 11. online driving: the synthetic FaceVerse manager at the v3 mesh size
+     (29,929 vertices, 59,168 faces); one `make_driven_rendering` on the card
+     against the CPU, the driving signal's device time, then the flagship
+     online loop (coefficients -> raster -> `synthesis_withTexture`, 512²,
+     B=1); B1 and B2 must launch once per frame
+ 12. few-shot, small config: a tiny-trunk GRU `InversionNet` (float32 and
+     bf16 U-Nets) absorbs two chunks of T=2 (the second with carried
+     states) on the card and on the CPU; features and GRU states compared
+ 13. few-shot, full width: the flagship eval generator with IR-SE-50 GRU
+     U-Nets in bf16 (`fewshot_inversion_net`) encodes and absorbs two chunks
+     of T=4 of seeded 512² frames (the first with the e4e render caches),
+     timed over repetitions with the peak memory; B1 and B2 must launch 4
+     times each per chunk; then 20 online frames drive the absorbed avatar
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -63,6 +76,9 @@ N_E4E_STEPS = 5
 # B3 launches per e4e step: two render passes (coarse, fine) of the Igen
 # target and of both students; transpose launches: both passes of both students
 B3_PER_STEP, B3T_PER_STEP = 6, 4
+N_ONLINE = 20  # timed online-driving frames (phases 11, 13)
+FEWSHOT_T = 4  # source frames per absorb chunk (phase 13)
+N_ABSORB_REPS = 3  # timed absorbs of 2 chunks (phase 13)
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
 # the tensor cores, HBM3 rate
@@ -565,6 +581,191 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     return records
 
 
+def compare_driving(torch, label, got, ref):
+    """Driving signals [1, 256, 256, 3] (u, v, mask) of two devices: the mask
+    channel agrees on >= 99.9% of pixels, and where both hit u and v agree to
+    1e-4 on >= 99.9% of pixels and to 1e-2 (about a texel of the 256² UV map)
+    on all: under another evaluation order a pixel on a shared edge or at a
+    depth tie may take the neighbouring face."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    agree = (got[..., 2] == ref[..., 2]).float().mean().item()
+    both = (got[..., 2] == 1) & (ref[..., 2] == 1)
+    d = (got[..., :2] - ref[..., :2]).abs().amax(dim=-1)[both]
+    close = (d <= 1e-4).float().mean().item() if both.any() else 0.0
+    err = d.max().item() if both.any() else float("inf")
+    print(f"[11] driving signal {label}: mask agrees on {agree * 100:.4f}% of pixels (>= 99.9%), "
+          f"{int(both.sum())} face pixels, u and v within 1e-4 on {close * 100:.4f}% of them "
+          f"(>= 99.9%), max|du|,|dv| {err:.3e} (< 1e-2)")
+    if not (agree >= 0.999 and both.sum() > 1000 and close >= 0.999 and err < 1e-2
+            and set(got[..., 2].unique().tolist()) <= {0.0, 1.0}):
+        fail(f"the driving signal on the card disagrees with the CPU ({label})")
+
+
+def online_frames(torch, fr, frame, coeffs, label):
+    """Warm-up frames, then `N_ONLINE` timed frames of `frame(coeff)` with
+    B1/B2 counted; returns (ms/frame on the host clock, launches, last image)."""
+    for i in range(N_WARMUP):
+        img = frame(coeffs[i])
+    torch.cuda.synchronize()
+    fr.fused_render.launches = fr.fused_merged_march.launches = 0
+    t0 = time.perf_counter()
+    for i in range(N_ONLINE):
+        img = frame(coeffs[N_WARMUP + i])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_ONLINE * 1e3
+    launches = {"fused_render": fr.fused_render.launches,
+                "fused_merged_march": fr.fused_merged_march.launches}
+    if tuple(img.shape) != (1, 3, 512, 512) or not torch.isfinite(img).all():
+        fail(f"{label}: frame {tuple(img.shape)} is not a finite [1, 3, 512, 512]")
+    if launches != {"fused_render": N_ONLINE, "fused_merged_march": N_ONLINE}:
+        fail(f"{label}: B1/B2 launched {launches} times in {N_ONLINE} frames, expected one each "
+             "per frame")
+    return ms, launches, img
+
+
+def online_phase(torch, dev, card, fr):
+    """Phase 11; returns (the card's manager, the trajectory on the card,
+    B1/B2 launches of the online loop)."""
+    from invertavatar_torch.faceverse.synthetic import coeff_trajectory, synthetic_manager
+    from invertavatar_torch.flagship import example_inputs, flagship_generator, init_flagship
+
+    t0 = time.perf_counter()
+    mgr, bank = synthetic_manager(n_grid=173, device=dev)
+    mgr_cpu, _ = synthetic_manager(n_grid=173, device="cpu")
+    V, F = mgr.model.assets.uv_per_ver.shape[0], mgr.tri.shape[0]
+    print(f"[11] synthetic FaceVerse manager: {V} vertices, {F} faces, built on the card and "
+          f"the CPU in {time.perf_counter() - t0:.2f} s")
+    if (V, F) != (29929, 59168):
+        fail(f"the synthetic mesh has {V} vertices and {F} faces, expected 29929 and 59168")
+    for i in (1, 2):
+        compare_driving(torch, f"drive coefficients {i}", mgr.make_driven_rendering(bank[i]),
+                        mgr_cpu.make_driven_rendering(bank[i]))
+    del mgr_cpu
+    traj = torch.from_numpy(coeff_trajectory(N_WARMUP + N_ONLINE)).to(dev)
+    raster_ms = device_ms(lambda: mgr.make_driven_rendering(traj[0]))
+    print(f"[11] driving signal (coefficients -> mesh -> raster 256² -> uvcoords_image), device "
+          f"time of all its ops {raster_ms:.4f} ms per frame on {card}")
+
+    G = init_flagship(flagship_generator(device=dev), seed=0)
+    z, c, _ = (torch.from_numpy(a).to(dev) for a in example_inputs(1))
+    with torch.inference_mode():
+        ws = G.mapping(z, c)
+        tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+        static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
+        cache, tex_cat = G.precompute_raster_static(static), G.precompute_texture_concat(tex)
+
+        def frame(coeff):
+            return G.synthesis_withTexture(ws, tex, c, {"uvcoords_image":
+                                                        mgr.make_driven_rendering(coeff)},
+                                           static_feats=static, noise_mode="const",
+                                           evaluation=True, raster_static_cache=cache,
+                                           texture_concat_cache=tex_cat)["image"]
+
+        ms, launches, img = online_frames(torch, fr, frame, traj, "online loop")
+    print(f"[11] online loop: {N_ONLINE} frames of coeff_trajectory -> make_driven_rendering -> "
+          f"synthesis_withTexture [1,3,512,512], {ms:.3f} ms/frame, {1e3 / ms:.3f} frames/s "
+          f"(host clock, B=1) on {card}; the driving signal's device time is "
+          f"{raster_ms / ms * 100:.2f}% of it; launches {launches}; image mean "
+          f"{img.float().mean().item():.4f}")
+    return mgr, traj, launches
+
+
+def fewshot_phases(torch, dev, card, fr, mgr, traj):
+    """Phases 12-13; returns the B1/B2 launches of the absorb and of the
+    driven frames."""
+    from invertavatar_torch.cli import eval_seq as es
+    from invertavatar_torch.faceverse.synthetic import synthetic_source_clip
+    from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS, fewshot_inversion_net
+
+    # ---------------------------------------------------------------- phase 12
+    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
+                 sr_num_fp16_res=0, neural_rendering_resolution=32, channel_base=2048,
+                 channel_max=128, num_fp16_res=0, map_num_layers=2,
+                 rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS, depth_resolution=12,
+                                       depth_resolution_importance=12, tile_shape=(16, 4)))
+    inputs = synthetic_source_clip(mgr, traj, 4, seed=12)
+    # bands of |card - CPU| as fractions of each tensor's largest entry (max,
+    # mean): float32 sums in other orders through ~60 layers (the bar of
+    # tests/test_torch_fewshot.py); bf16 layers rounded after other sums (the
+    # 5% bar of tests/test_torch_unet_encoders.py)
+    for dt, rel, mean_rel in ((None, 1e-3, 1e-4), (torch.bfloat16, 5e-2, 5e-3)):
+        net_cpu = fewshot_inversion_net(small, trunk_layers_n=8, seed=2, unet_eval_dtype=dt,
+                                        device="cpu")
+        net_gpu = fewshot_inversion_net(small, trunk_layers_n=8, seed=2, unet_eval_dtype=dt,
+                                        device=dev)
+        net_gpu.load_state_dict(net_cpu.state_dict())
+        outs = []
+        for n, d in ((net_gpu, dev), (net_cpu, torch.device("cpu"))):
+            with torch.inference_mode():
+                avatar, r_list = es.absorb_clip(n, *(t.to(d) for t in inputs), T=2)
+            outs.append([t.float().cpu() for t in avatar["texture"] + avatar["static"]
+                         + r_list[0] + r_list[1]])
+        worst = 0.0
+        for a, b in zip(*outs):
+            scale = b.abs().max().item() + 1e-6
+            e = (a - b).abs()
+            worst = max(worst, e.max().item() / scale)
+            if not (torch.isfinite(a).all() and e.max() <= rel * scale
+                    and e.mean() <= mean_rel * scale):
+                fail(f"few-shot small config ({dt or 'float32'} U-Nets): card and CPU differ "
+                     f"by {e.max().item():.3e} max, {e.mean().item():.3e} mean at scale "
+                     f"{scale:.3e}")
+        print(f"[12] few-shot small config, {dt or 'float32'} U-Nets, 2 chunks of T=2: "
+              f"{len(outs[0])} features and GRU states, card vs CPU max|d| {worst:.3e} of each "
+              f"tensor's scale (<= {rel}; mean <= {mean_rel})")
+        del net_cpu, net_gpu, outs
+    del inputs
+
+    # ---------------------------------------------------------------- phase 13
+    t0 = time.perf_counter()
+    net = fewshot_inversion_net(device=dev)
+    n_frames = 2 * FEWSHOT_T
+    images, uv, cams, uvc = synthetic_source_clip(mgr, traj, n_frames, seed=13)
+    torch.cuda.synchronize()
+    print(f"[13] few-shot network built (flagship eval generator, IR-SE-50 e4e encoder and GRU "
+          f"U-Nets, bf16 U-Nets in the absorb), weights and {n_frames} source frames ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        es.absorb_clip(net, images, uv, cams, uvc, FEWSHOT_T)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fr.fused_render.launches = fr.fused_merged_march.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(N_ABSORB_REPS):
+            avatar, r_list = es.absorb_clip(net, images, uv, cams, uvc, FEWSHOT_T)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / N_ABSORB_REPS
+        absorb_launches = {"fused_render": fr.fused_render.launches,
+                           "fused_merged_march": fr.fused_merged_march.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = FEWSHOT_T * 2 * N_ABSORB_REPS
+    print(f"[13] few-shot absorb (encode + 2 chunks of T={FEWSHOT_T}, 512² frames): "
+          f"{secs:.4f} s per {n_frames} absorbed frames over {N_ABSORB_REPS} repetitions "
+          f"(host clock), {n_frames / secs:.3f} frames/s; peak memory {peak:.3f} GiB on {card}; "
+          f"launches {absorb_launches}")
+    if absorb_launches != {"fused_render": expect, "fused_merged_march": expect}:
+        fail(f"the absorb launched B1/B2 {absorb_launches} times, expected {FEWSHOT_T} each per "
+             f"chunk ({expect} in {N_ABSORB_REPS} absorbs of 2 chunks)")
+    feats = avatar["texture"] + avatar["static"] + r_list[0] + r_list[1]
+    if not all(torch.isfinite(t.float()).all() for t in feats):
+        fail("the absorbed features or GRU states are not finite")
+    if not all(r.dtype == torch.bfloat16 for r in r_list[0] + r_list[1]):
+        fail("the carried GRU states are not bf16")
+
+    with torch.inference_mode():
+        caches = es.drive_caches(net, avatar)
+        c = cams[:1]
+
+        def frame(coeff):
+            return es.render_drive_frame(net, avatar, caches, c, manager=mgr, coeff=coeff)
+
+        ms, drive_launches, img = online_frames(torch, fr, frame, traj, "few-shot drive")
+    print(f"[13] few-shot drive: {N_ONLINE} online frames of the absorbed avatar, {ms:.3f} "
+          f"ms/frame, {1e3 / ms:.3f} frames/s (host clock, B=1) on {card}; launches "
+          f"{drive_launches}; image mean {img.float().mean().item():.4f}")
+    return absorb_launches, drive_launches
+
+
 def main(argv=None):
     import argparse
 
@@ -706,6 +907,18 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     kernels += e4e_phases(torch, dev, card, ps, rmod, args.earlier_src)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phases 11-13
+    mgr, traj, online_launches = online_phase(torch, dev, card, fr)
+    torch.cuda.empty_cache()
+    absorb_launches, drive_launches = fewshot_phases(torch, dev, card, fr, mgr, traj)
+    for k in kernels:
+        if k["name"] in online_launches:
+            k["launches_by_path"] = {"frame_loop": k["launches"],
+                                     "online": online_launches[k["name"]],
+                                     "fewshot_absorb": absorb_launches[k["name"]],
+                                     "fewshot_drive": drive_launches[k["name"]]}
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

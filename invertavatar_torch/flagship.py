@@ -83,6 +83,29 @@ def flagship_inversion_net(trunk_layers_n: int = 50, seed: int = 0, device="cuda
     return net
 
 
+def fewshot_inversion_net(generator_cfg=None, trunk_layers_n: int = 50, seed: int = 0,
+                          unet_eval_dtype=torch.bfloat16, device="cuda"):
+    """The few-shot stage's network on `device` (CUDA by default): the
+    flagship eval generator (`flagship_config()`: bf16 backbones and SR,
+    conv_clamp 256) unless `generator_cfg` is given, filled by
+    `init_flagship(seed)`; the e4e encoder and both ConvGRU U-Nets (IR-SE-50
+    trunks; `trunk_layers_n=8`: the tiny test trunks) with torch's default
+    initialisation drawn after `torch.manual_seed(seed)`, the U-Nets
+    computing in `unet_eval_dtype` in the absorb."""
+    from .models.encoders import InversionNet, texture_out_channels_for
+
+    cfg = flagship_config() if generator_cfg is None else dict(generator_cfg)
+    device = resolve_device(device)
+    torch.manual_seed(seed)
+    with torch.device(device):
+        net = InversionNet(cfg, encoding_texture=True, encoding_triplane=True,
+                           texture_out_channels=texture_out_channels_for(cfg["channel_base"],
+                                                                         cfg["channel_max"]),
+                           unet_eval_dtype=unet_eval_dtype, trunk_layers_n=trunk_layers_n)
+    init_flagship(net.generator, seed=seed)
+    return net.eval()
+
+
 def example_inputs(batch: int = 1, seed: int = 0):
     """(z, c, uvcoords_image) as numpy arrays: a frontal camera and a synthetic
     face mask with a mouth hole."""

@@ -1,9 +1,12 @@
-"""Inversion encoders: the IR-SE trunk, the e4e W+ encoder and the inversion
-network that pairs it with the frozen generator."""
+"""Inversion encoders: the IR-SE trunk, the e4e W+ encoder, the ConvGRU U-Nets
+of the few-shot stage and the inversion network that pairs them with the
+frozen generator."""
 
 from .e4e import E4E, Encoder4Editing, LatentCodesDiscriminator
 from .irse import BottleneckIRSE, IRSETrunk
-from .uvnet import InversionNet
+from .unet_encoders import ConvGRU, TriPlanefeatEncoder, TriPlaneSFTfeatEncoder
+from .uvnet import InversionNet, UnetEncoderPair, texture_out_channels_for
 
 __all__ = ["E4E", "Encoder4Editing", "LatentCodesDiscriminator", "BottleneckIRSE", "IRSETrunk",
-           "InversionNet"]
+           "ConvGRU", "TriPlanefeatEncoder", "TriPlaneSFTfeatEncoder", "InversionNet",
+           "UnetEncoderPair", "texture_out_channels_for"]

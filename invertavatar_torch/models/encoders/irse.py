@@ -8,6 +8,11 @@ follow the torch reference's Sequential layout (`input_layer.0`,
 stages run the trunks with `train=False` (the JAX `BatchNorm` batch-statistics
 mode is never taken there), and a module-level `.train()` must not switch a
 B=1 step to batch statistics.
+
+Dtype policy (the JAX primitives'): `Conv2d` and `PReLU` cast their float32
+weights to the input's dtype, and `BatchNorm` normalises in float32 and
+returns the input's dtype, so a bfloat16 input runs the whole trunk in
+bfloat16 (the few-shot absorb's `unet_eval_dtype`).
 """
 
 from __future__ import annotations
@@ -16,6 +21,22 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` whose weights take the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class PReLU(nn.PReLU):
+    """`nn.PReLU` whose weight takes the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 class BatchNorm(nn.Module):
@@ -40,8 +61,8 @@ class SEModule(nn.Module):
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
-        self.fc1 = nn.Conv2d(channels, channels // reduction, 1, bias=False)
-        self.fc2 = nn.Conv2d(channels // reduction, channels, 1, bias=False)
+        self.fc1 = Conv2d(channels, channels // reduction, 1, bias=False)
+        self.fc2 = Conv2d(channels // reduction, channels, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -57,12 +78,12 @@ class BottleneckIRSE(nn.Module):
             self.shortcut_layer = nn.MaxPool2d(1, stride)
         else:
             self.shortcut_layer = nn.Sequential(
-                nn.Conv2d(in_ch, depth, 1, stride, 0, bias=False), BatchNorm(depth))
+                Conv2d(in_ch, depth, 1, stride, 0, bias=False), BatchNorm(depth))
         self.res_layer = nn.Sequential(
             BatchNorm(in_ch),
-            nn.Conv2d(in_ch, depth, 3, 1, 1, bias=False),
-            nn.PReLU(depth),
-            nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
+            Conv2d(in_ch, depth, 3, 1, 1, bias=False),
+            PReLU(depth),
+            Conv2d(depth, depth, 3, stride, 1, bias=False),
             BatchNorm(depth),
             SEModule(depth, 16),
         )
@@ -104,7 +125,7 @@ class IRSETrunk(nn.Module):
         self.num_layers = num_layers
         self.taps = tuple(taps)
         self.input_layer = nn.Sequential(
-            nn.Conv2d(inp_ch, 64, 3, 1, 1, bias=False), BatchNorm(64), nn.PReLU(64))
+            Conv2d(inp_ch, 64, 3, 1, 1, bias=False), BatchNorm(64), PReLU(64))
         self.body = nn.Sequential(*(BottleneckIRSE(i, d, s) for i, d, s in get_blocks(num_layers)))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:

@@ -1,45 +1,88 @@
-"""Inversion network, plain PyTorch (NCHW): the part the e4e stage needs.
+"""Inversion network, plain PyTorch (NCHW).
 
 Counterpart of `invertavatar_tpu/models/encoders/uvnet.py`: `InversionNet`
-holds the frozen tri-plane `generator`, the e4e `encoder` and the
-`latent_avg` / `black_uv_bg` buffers, with the torch reference's names, and
-`encode` gives the W+ codes. The UV-space and tri-plane U-Net offset encoders
-of the one-shot and few-shot stages are not ported yet (ROADMAP A9).
+holds the frozen tri-plane `generator`, the e4e `encoder`, the ConvGRU U-Nets
+`unet_encoder.{texture_unet, triplane_unet}` of the few-shot stage and the
+`latent_avg` / `black_uv_bg` buffers, with the torch reference's names.
+`encode` gives the W+ codes; `ar_forward` absorbs a chunk of source frames
+into the avatar's features, carrying the GRU states across chunks (the
+streaming few-shot path of `cli/eval_seq.py`).
+
+Unlike the JAX package, whose modules make no variables until they run, the
+port builds the U-Nets only when `encoding_texture` / `encoding_triplane` ask
+for them (the e4e stage holds none). Not ported yet: the SegFormer one-shot
+U-Nets (`unet_type="segformer"`, ROADMAP A9) and the training rollouts
+(`__call__`, `prefix`, `run_seq`, `run_seq_multiT`, ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from ...ops.grid_sample import grid_sample
 from ...ops.resize import resize_bilinear
 from ..triplane import TriPlaneGenerator
 from .e4e import Encoder4Editing
+from .unet_encoders import TriPlanefeatEncoder, TriPlaneSFTfeatEncoder, adaptive_avg_pool
+
+__all__ = ["InversionNet", "UnetEncoderPair", "adaptive_avg_pool", "texture_out_channels_for"]
 
 
-def adaptive_avg_pool(x: torch.Tensor, res: int) -> torch.Tensor:
-    """AdaptiveAvgPool2d((res, res)) of NCHW `x` for an integer downscale."""
-    H = x.shape[2]
-    if H == res:
-        return x
-    assert H % res == 0, (H, res)
-    return F.avg_pool2d(x, H // res)
+def texture_out_channels_for(channel_base: int, channel_max: int) -> Tuple[int, int, int, int]:
+    """Channels of the texture backbone's first four `return_list` taps
+    [img (32), x@32, x@64, x@128]: the taps the texture U-Net offsets."""
+    return (32, min(channel_base // 32, channel_max), min(channel_base // 64, channel_max),
+            min(channel_base // 128, channel_max))
+
+
+class UnetEncoderPair(nn.Module):
+    """The reference's `unet_encoder` container: `texture_unet` and
+    `triplane_unet`, each present when asked for."""
+
+    def __init__(self, encoding_texture: bool = True, encoding_triplane: bool = True,
+                 unet_type: str = "gru",
+                 texture_out_channels: Tuple[int, int, int, int] = (32, 512, 512, 256),
+                 channel_base: int = 32768, channel_max: int = 512, trunk_layers_n: int = 50):
+        super().__init__()
+        if unet_type != "gru":
+            raise NotImplementedError(
+                f"unet_type={unet_type!r}: the SegFormer one-shot U-Nets are not ported yet "
+                "(ROADMAP A9)")
+        self.texture_unet = (TriPlanefeatEncoder(inp_ch=7, res=256, use_gru=True,
+                                                 out_channels=texture_out_channels,
+                                                 trunk_layers_n=trunk_layers_n)
+                             if encoding_texture else None)
+        self.triplane_unet = (TriPlaneSFTfeatEncoder(inp_ch=6, res=256, use_gru=True,
+                                                     channel_base=channel_base,
+                                                     channel_max=channel_max,
+                                                     trunk_layers_n=trunk_layers_n)
+                              if encoding_triplane else None)
 
 
 class InversionNet(nn.Module):
     def __init__(self, generator_cfg: Dict[str, Any], n_styles: int = 14,
                  encoding_texture: bool = False, encoding_triplane: bool = False,
-                 trunk_layers_n: int = 50):
+                 unet_type: str = "gru",
+                 texture_out_channels: Tuple[int, int, int, int] = (32, 512, 512, 256),
+                 unet_eval_dtype: Optional[torch.dtype] = None, trunk_layers_n: int = 50):
+        """`unet_eval_dtype` (e.g. `torch.bfloat16`) is the U-Nets' compute
+        dtype in `ar_forward`: their inputs and carried GRU states take it,
+        the convolutions and PReLUs run in it, BatchNorm normalises in
+        float32, and the offsets and SFT return to float32. None keeps
+        float32. `trunk_layers_n=8` builds the tiny test trunks."""
         super().__init__()
-        if encoding_texture or encoding_triplane:
-            raise NotImplementedError(
-                "the U-Net offset encoders (encoding_texture / encoding_triplane) are not "
-                "ported yet (ROADMAP A9)")
         self.generator = TriPlaneGenerator(**generator_cfg)
         self.encoder = Encoder4Editing(n_styles=n_styles, inp_ch=3, trunk_layers_n=trunk_layers_n)
+        self.unet_eval_dtype = unet_eval_dtype
+        if encoding_texture or encoding_triplane:
+            self.unet_encoder = UnetEncoderPair(
+                encoding_texture, encoding_triplane, unet_type=unet_type,
+                texture_out_channels=texture_out_channels,
+                channel_base=generator_cfg.get("channel_base", 32768),
+                channel_max=generator_cfg.get("channel_max", 512), trunk_layers_n=trunk_layers_n)
         self.register_buffer("latent_avg", torch.zeros(1, 512))
         self.register_buffer("black_uv_bg", -torch.ones(1, 3, 256, 256))
 
@@ -51,3 +94,81 @@ class InversionNet(nn.Module):
             # only shrunken test generators render below 256²
             x = resize_bilinear(x, (256, 256))
         return self.encoder(x) + self.latent_avg[None]
+
+    def get_unet_uvinput(self, uv: torch.Tensor, delta_x: torch.Tensor) -> torch.Tensor:
+        """The texture U-Net's UV-space input: uv [B, 6, 256, 256] = (UV
+        texture 3 ‖ UV vertex image 3: x, y, mask), delta_x [B, 3, H, W] ->
+        [B, 7, 256, 256] = (UV texture, Δimage sampled into UV space with the
+        black background outside the mask, mask)."""
+        uv_gttex, uv_pverts = uv[:, :3], uv[:, 3:]
+        uv_delta = grid_sample(delta_x, uv_pverts[:, :2].permute(0, 2, 3, 1))
+        mask = uv_pverts[:, 2:3]
+        uv_delta = uv_delta * mask + self.black_uv_bg * (1 - mask)
+        return torch.cat([uv_gttex, uv_delta, mask], dim=1)
+
+    def ar_forward(self, x: Dict[str, torch.Tensor], vid_c: torch.Tensor,
+                   vid_v: Dict[str, torch.Tensor], ws: Optional[torch.Tensor], r_list: List,
+                   e4e_results: Optional[Dict] = None, return_fake: bool = False,
+                   e4e_render_caches=None):
+        """Absorb a chunk of T source frames into the avatar's features.
+
+        x: {"image": [T, 3, 256, 256], "uv": [T, 6, 256, 256]}; vid_c [T, 25];
+        vid_v {"uvcoords_image": [T, 256, 256, 3]}; `ws` [1, n_styles, 512]
+        (None: encode the chunk's first image); r_list [texture states,
+        triplane states] (None for a fresh chunk); `e4e_results` {"texture",
+        "static"} the feature lists to refine (None: the e4e lists of `ws`).
+        `e4e_render_caches` (raster_static_cache, texture_concat_cache) built
+        from the same T-repeated lists speed up this chunk's render; they hold
+        only while those lists are unchanged (the first chunk).
+
+        Returns (updated {"w", "texture", "static"}, new r_list), or with
+        `return_fake` (updated, {"e4e", "image", "x_input"}, new r_list)."""
+        G = self.generator
+        T = vid_c.shape[0]
+        if ws is None:
+            ws = self.encode(x["image"][0:1])
+        if e4e_results is None:
+            tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+            static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
+        else:
+            tex, static = e4e_results["texture"], e4e_results["static"]
+        vid_ws = ws.repeat_interleave(T, dim=0)
+
+        def rep(feats):
+            return [f.repeat_interleave(T, dim=0) for f in feats]
+
+        cache_kw = {}
+        if e4e_render_caches is not None:
+            cache_kw = {"raster_static_cache": e4e_render_caches[0],
+                        "texture_concat_cache": e4e_render_caches[1]}
+        y_hat = G.synthesis_withTexture(vid_ws, rep(tex), vid_c, vid_v, static_feats=rep(static),
+                                        noise_mode="const", evaluation=True, **cache_kw)
+        delta_x = y_hat["image"]
+        if delta_x.shape[2] != x["image"].shape[2]:
+            delta_x = resize_bilinear(delta_x, (256, 256), antialias=True)
+        delta_x = delta_x - x["image"][:, :3]
+        uv_input = self.get_unet_uvinput(x["uv"], delta_x)
+        tri_input = torch.cat([x["image"][:, :3], delta_x], dim=1)
+
+        dt = self.unet_eval_dtype
+        r_list = list(r_list)
+        if dt is not None:
+            uv_input, tri_input = uv_input.to(dt), tri_input.to(dt)
+            r_list = [None if r is None else [s.to(dt) for s in r] for r in r_list]
+        tex_offsets, r_tex = self.unet_encoder.texture_unet(uv_input[None], r_list[0])
+        sft, r_tri = self.unet_encoder.triplane_unet(tri_input[None], r_list[1])
+        if dt is not None:
+            # offsets and SFT re-enter the float32 feature path; the GRU
+            # states stay in dt (they only feed the next chunk's cells)
+            tex_offsets = [o.float() for o in tex_offsets]
+            sft = {k: (a.float(), b.float()) for k, (a, b) in sft.items()}
+        texture_feats = [f + o for f, o in zip(tex, tex_offsets)] + list(tex[len(tex_offsets):])
+        static_feats = G.backbone.synthesis(ws, return_list=True, feat_conditions=sft,
+                                            noise_mode="const")
+        updated = {"w": ws, "texture": texture_feats, "static": static_feats}
+        if not return_fake:
+            return updated, [r_tex, r_tri]
+        fakes = G.synthesis_withTexture(vid_ws, rep(texture_feats), vid_c, vid_v,
+                                        static_feats=rep(static_feats), noise_mode="const",
+                                        evaluation=True)["image"]
+        return updated, {"e4e": y_hat["image"], "image": fakes, "x_input": uv_input}, [r_tex, r_tri]

@@ -81,6 +81,7 @@ class TriPlaneGenerator(nn.Module):
                  conv_clamp: Optional[float] = 256.0, map_num_layers: int = 2):
         super().__init__()
         self.c_dim = c_dim
+        self.img_resolution = img_resolution
         self.rendering_kwargs = dict(rendering_kwargs or {})
         self.neural_rendering_resolution = neural_rendering_resolution
         rk = self.rendering_kwargs

@@ -1,20 +1,26 @@
-"""Where the time of a reenactment frame or an e4e training step goes on one GPU.
+"""Where the time of a reenactment frame, a few-shot absorb or an e4e training
+step goes on one GPU.
 
     python -m invertavatar_torch.utils.profiling          # the 512² frame
+    python -m invertavatar_torch.utils.profiling online   # ... driven by FaceVerse
+    python -m invertavatar_torch.utils.profiling absorb   # encode + 2 chunks of T=4
     python -m invertavatar_torch.utils.profiling e4e      # one e4e training step
 
 `frame` builds the flagship generator with seeded random weights (as
-`chip_smoke.py` does) and precomputes the avatar once; `e4e` builds the e4e
-network (float32 flagship generator, IR-SE-50 encoder, latent discriminator)
-and steps `make_e4e_grad_programs` with the B3 fast paths on a synthetic B=1
-512² batch, as `chip_smoke.py` phase 10 does. Either times untraced
-iterations on the host clock, then traces iterations with `torch.profiler`
-and prints, per iteration:
+`chip_smoke.py` does) and precomputes the avatar once; `online` drives it
+with the synthetic FaceVerse manager at the v3 mesh size (phase 11);
+`absorb` builds `fewshot_inversion_net` and absorbs a synthetic 8-frame clip
+(phase 13); `e4e` builds the e4e network (float32 flagship generator, IR-SE-50
+encoder, latent discriminator) and steps `make_e4e_grad_programs` with the
+B3 fast paths on a synthetic B=1 512² batch, as `chip_smoke.py` phase 10
+does. Each times untraced iterations on the host clock, then traces
+iterations with `torch.profiler` and prints, per iteration:
   * host ms (untraced) and device busy ms (the sum of kernel times; one
     stream, so kernels do not overlap) and the device's idle share
-  * for the frame, each stage of `synthesis_withTexture` (rasterize, face
-    backbone, renderer, super-resolution, the rest): its window on the device
-    timeline, the device time busy inside it, and its device ops
+  * for all but `e4e`, each stage (frame: the driving signal, rasterize,
+    face backbone, renderer, super-resolution; absorb: encode, the texture
+    and static backbones, the render, both U-Nets), and the rest: its window
+    on the device timeline, the device time busy inside it, its device ops
   * the device ops with the most device time
 and, last, one JSON line with the same numbers.
 """
@@ -28,15 +34,15 @@ from collections import defaultdict
 
 import torch
 
-STAGES = ("rasterize", "face_backbone", "render", "superresolution")
 TRACED_FRAMES = 5
 TIMED_FRAMES = 20
 TOP_OPS = 15
 
 
 @contextlib.contextmanager
-def _stage_scopes(G):
-    """Wrap the frame's stages in `record_function` scopes (restored after)."""
+def _stage_scopes(targets):
+    """Wrap each `(stage, object, attribute)` callable in a `record_function`
+    scope (restored after)."""
 
     def scoped(stage, fn):
         def wrapped(*a, **k):
@@ -44,47 +50,84 @@ def _stage_scopes(G):
                 return fn(*a, **k)
         return wrapped
 
-    renderer = G.renderer
-    G.rasterize = scoped("rasterize", G.rasterize)
-    G.renderer = scoped("render", renderer)
-    for stage, mod in (("face_backbone", G.face_backbone.synthesis),
-                       ("superresolution", G.superresolution)):
-        mod.forward = scoped(stage, mod.forward)
+    saved = []
+    for stage, obj, attr in targets:
+        saved.append((obj, attr, attr in vars(obj), getattr(obj, attr)))
+        setattr(obj, attr, scoped(stage, getattr(obj, attr)))
     try:
         yield
     finally:
-        del G.rasterize
-        G.renderer = renderer
-        del G.face_backbone.synthesis.forward
-        del G.superresolution.forward
+        for obj, attr, own, fn in reversed(saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
 
 
-def _frame(dev):
-    """(iteration, stage scopes) of the reenactment frame loop."""
+def _frame(dev, online=False):
+    """(iteration, stages, scopes) of the reenactment frame loop, from the
+    fixed synthetic `uvcoords_image` or, `online`, from FaceVerse
+    coefficients."""
     from ..flagship import example_inputs, flagship_generator, init_flagship
 
     G = init_flagship(flagship_generator(device=dev), seed=0)
     z, c, uvc = (torch.from_numpy(a).to(dev) for a in example_inputs(1))
-    mesh = {"uvcoords_image": uvc}
     with torch.inference_mode():
         ws = G.mapping(z, c)
         tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
         static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
         cache = G.precompute_raster_static(static)
         tex_cat = G.precompute_texture_concat(tex)
+    targets = [("rasterize", G, "rasterize"), ("render", G, "renderer"),
+               ("face_backbone", G.face_backbone.synthesis, "forward"),
+               ("superresolution", G.superresolution, "forward")]
+    drive = lambda: uvc  # noqa: E731
+    if online:
+        from ..faceverse.synthetic import coeff_trajectory, synthetic_manager
+
+        mgr, _ = synthetic_manager(n_grid=173, device=dev)
+        traj = torch.from_numpy(coeff_trajectory(TIMED_FRAMES)).to(dev)
+        frames = iter(range(1 << 62))
+        drive = lambda: mgr.make_driven_rendering(traj[next(frames) % TIMED_FRAMES])  # noqa: E731
+        targets.insert(0, ("driving", mgr, "make_driven_rendering"))
 
     @torch.inference_mode()
     def frame():
-        return G.synthesis_withTexture(ws, tex, c, mesh, static_feats=static,
-                                       noise_mode="const", evaluation=True,
+        return G.synthesis_withTexture(ws, tex, c, {"uvcoords_image": drive()},
+                                       static_feats=static, noise_mode="const", evaluation=True,
                                        raster_static_cache=cache,
                                        texture_concat_cache=tex_cat)["image"]
 
-    return frame, _stage_scopes(G)
+    return frame, [t[0] for t in targets], _stage_scopes(targets)
+
+
+def _absorb(dev):
+    """(iteration, stages, scopes) of the few-shot absorb: encode and two
+    chunks of T=4 of a synthetic 512² clip through `cli.eval_seq.absorb_clip`."""
+    from ..cli.eval_seq import absorb_clip
+    from ..faceverse.synthetic import coeff_trajectory, synthetic_manager, synthetic_source_clip
+    from ..flagship import fewshot_inversion_net
+
+    net = fewshot_inversion_net(device=dev)
+    mgr, _ = synthetic_manager(n_grid=173, device=dev)
+    clip = synthetic_source_clip(mgr, torch.from_numpy(coeff_trajectory(8)).to(dev), 8, seed=13)
+    G, unets = net.generator, net.unet_encoder
+    targets = [("encode", net, "encode"),
+               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
+               ("backbone", G.backbone.synthesis, "forward"),
+               ("render", G, "synthesis_withTexture"),
+               ("texture_unet", unets.texture_unet, "forward"),
+               ("triplane_unet", unets.triplane_unet, "forward")]
+
+    @torch.inference_mode()
+    def run():
+        return absorb_clip(net, *clip, T=4)
+
+    return run, [t[0] for t in targets], _stage_scopes(targets)
 
 
 def _e4e(dev):
-    """(iteration, no scopes) of the e4e training step."""
+    """(iteration, no stages, no scopes) of the e4e training step."""
     import numpy as np
 
     from ..flagship import example_inputs, flagship_inversion_net
@@ -104,7 +147,7 @@ def _e4e(dev):
                                    w_discriminator=0.01, raw_l1=1.0, tri=0.001)
     step = make_e4e_grad_programs(net, lambda a, b: (a - b).abs().mean(), None, weights,
                                   fast_igen_target="exact", fast_grad="pallas")
-    return (lambda: step(state, wd_state, batch)), contextlib.nullcontext()
+    return (lambda: step(state, wd_state, batch)), (), contextlib.nullcontext()
 
 
 def main(argv=None):
@@ -114,7 +157,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    run, scopes = {"frame": _frame, "e4e": _e4e}[path](dev)
+    paths = {"frame": _frame, "online": lambda d: _frame(d, online=True), "absorb": _absorb,
+             "e4e": _e4e}
+    run, stage_names, scopes = paths[path](dev)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -155,7 +200,7 @@ def main(argv=None):
     print(f"device busy ms: {busy_ms:.3f}; device ops: {len(work) / n:.1f}; "
           f"idle share: {idle:.3f}")
     stages = {}
-    for stage in (*STAGES, "other") if path == "frame" else ():
+    for stage in (*stage_names, "other") if stage_names else ():
         stages[stage] = {"window_ms": window_us[stage] / n / 1e3,
                          "busy_ms": busy_us[stage] / n / 1e3, "ops": count[stage] / n}
         print(f"  stage {stage:16s} device window {stages[stage]['window_ms']:8.3f} ms, "
