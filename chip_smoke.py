@@ -584,9 +584,9 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
 def compare_driving(torch, label, got, ref):
     """Driving signals [1, 256, 256, 3] (u, v, mask) of two devices: the mask
     channel agrees on >= 99.9% of pixels, and where both hit u and v agree to
-    1e-4 on >= 99.9% of pixels and to 1e-2 (about a texel of the 256² UV map)
-    on all: under another evaluation order a pixel on a shared edge or at a
-    depth tie may take the neighbouring face."""
+    1e-4 on >= 99.9% of pixels and to 1e-3 on all: under another evaluation
+    order a pixel on a shared edge or at a depth tie may take the neighbouring
+    face (the largest reading so far, 1.456e-4, was one such pixel)."""
     got, ref = got.float().cpu(), ref.float().cpu()
     agree = (got[..., 2] == ref[..., 2]).float().mean().item()
     both = (got[..., 2] == 1) & (ref[..., 2] == 1)
@@ -595,8 +595,8 @@ def compare_driving(torch, label, got, ref):
     err = d.max().item() if both.any() else float("inf")
     print(f"[11] driving signal {label}: mask agrees on {agree * 100:.4f}% of pixels (>= 99.9%), "
           f"{int(both.sum())} face pixels, u and v within 1e-4 on {close * 100:.4f}% of them "
-          f"(>= 99.9%), max|du|,|dv| {err:.3e} (< 1e-2)")
-    if not (agree >= 0.999 and both.sum() > 1000 and close >= 0.999 and err < 1e-2
+          f"(>= 99.9%), max|du|,|dv| {err:.3e} (<= 1e-3)")
+    if not (agree >= 0.999 and both.sum() > 1000 and close >= 0.999 and err <= 1e-3
             and set(got[..., 2].unique().tolist()) <= {0.0, 1.0}):
         fail(f"the driving signal on the card disagrees with the CPU ({label})")
 

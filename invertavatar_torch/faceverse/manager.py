@@ -34,16 +34,12 @@ class FaceverseManager:
     ORTH_SHIFT = (0.0, 0.005, 0.0)
 
     def __init__(self, assets: FaceVerseAssets, fv2fl: np.ndarray, face_mask: np.ndarray,
-                 base_coeff: Optional[np.ndarray] = None, faces_per_tile: int = 1024,
-                 raster_kwargs: Optional[dict] = None, device="cuda"):
+                 base_coeff: Optional[np.ndarray] = None, device="cuda"):
         """`fv2fl` [4, 4] is the FaceVerse → FLAME-space transform
         (`fv2fl_30.npy`), `face_mask` [V] the vertex face-region mask
-        (`v31_face_mask_new.npy`); `raster_kwargs` adds `rasterize` options
-        (tile, chunk, exact_cover)."""
+        (`v31_face_mask_new.npy`)."""
         self.device = resolve_device(device)
         self.model = FaceVerseModel(assets, self.device)
-        self.faces_per_tile = faces_per_tile
-        self.raster_kwargs = dict(raster_kwargs or {})
         fv2fl = torch.from_numpy(np.asarray(fv2fl, np.float32)).to(self.device)
         self._fv2fl_rot = fv2fl[:3, :3].T.contiguous()
         self._fv2fl_trans = fv2fl[:3, 3:].T.contiguous()
@@ -112,8 +108,7 @@ class FaceverseManager:
         # the orthographic camera (1, 0, 0) leaves xy as they are; z is flipped
         transformed = transformed * self._flip_z
         out = rasterize(transformed, self.tri, height=h, width=w, window=window,
-                        faces_per_tile=self.faces_per_tile, cull_backfaces=False,
-                        binning="anchor", **self.raster_kwargs)
+                        faces_per_tile=1024, cull_backfaces=False, binning="anchor")
         rendering = interpolate_attributes(out, self.face_attrs)  # [h, w, 4] = (u, v, mask, vis)
         rendering = rendering * (rendering[..., 3:4] * rendering[..., 2:3])
         # binarise the mask channel

@@ -12,7 +12,8 @@ B=1 step to batch statistics.
 Dtype policy (the JAX primitives'): `Conv2d` and `PReLU` cast their float32
 weights to the input's dtype, and `BatchNorm` normalises in float32 and
 returns the input's dtype, so a bfloat16 input runs the whole trunk in
-bfloat16 (the few-shot absorb's `unet_eval_dtype`).
+bfloat16 (the few-shot absorb's `unet_eval_dtype`). `store_weights_in` rounds
+those weights once instead, to the same values, so that no call casts them.
 """
 
 from __future__ import annotations
@@ -37,6 +38,15 @@ class PReLU(nn.PReLU):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.prelu(x, self.weight.to(x.dtype))
+
+
+def store_weights_in(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Store the `Conv2d` and `PReLU` weights under `module` in `dtype`;
+    `BatchNorm` keeps float32. Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, PReLU)):
+            m.to(dtype)
+    return module
 
 
 class BatchNorm(nn.Module):

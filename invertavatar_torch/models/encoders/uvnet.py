@@ -26,6 +26,7 @@ from ...ops.grid_sample import grid_sample
 from ...ops.resize import resize_bilinear
 from ..triplane import TriPlaneGenerator
 from .e4e import Encoder4Editing
+from .irse import store_weights_in
 from .unet_encoders import TriPlanefeatEncoder, TriPlaneSFTfeatEncoder, adaptive_avg_pool
 
 __all__ = ["InversionNet", "UnetEncoderPair", "adaptive_avg_pool", "texture_out_channels_for"]
@@ -70,9 +71,9 @@ class InversionNet(nn.Module):
                  unet_eval_dtype: Optional[torch.dtype] = None, trunk_layers_n: int = 50):
         """`unet_eval_dtype` (e.g. `torch.bfloat16`) is the U-Nets' compute
         dtype in `ar_forward`: their inputs and carried GRU states take it,
-        the convolutions and PReLUs run in it, BatchNorm normalises in
-        float32, and the offsets and SFT return to float32. None keeps
-        float32. `trunk_layers_n=8` builds the tiny test trunks."""
+        their convolution and PReLU weights are stored in it, BatchNorm
+        normalises in float32, and the offsets and SFT return to float32.
+        None keeps float32. `trunk_layers_n=8` builds the tiny test trunks."""
         super().__init__()
         self.generator = TriPlaneGenerator(**generator_cfg)
         self.encoder = Encoder4Editing(n_styles=n_styles, inp_ch=3, trunk_layers_n=trunk_layers_n)
@@ -83,6 +84,9 @@ class InversionNet(nn.Module):
                 texture_out_channels=texture_out_channels,
                 channel_base=generator_cfg.get("channel_base", 32768),
                 channel_max=generator_cfg.get("channel_max", 512), trunk_layers_n=trunk_layers_n)
+            if unet_eval_dtype is not None:
+                # rounded once, as a cast per op would round them on every call
+                store_weights_in(self.unet_encoder, unet_eval_dtype)
         self.register_buffer("latent_avg", torch.zeros(1, 512))
         self.register_buffer("black_uv_bg", -torch.ones(1, 3, 256, 256))
 

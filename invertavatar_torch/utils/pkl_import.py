@@ -12,12 +12,15 @@ a `pickle.Unpickler` whose `find_class` returns inert stubs for every torch
 and persistence symbol, rebuilds tensors as numpy arrays from the storage
 bytes, and walks the stub module tree into flat `{dotted_name: ndarray}`
 state dicts plus `init_kwargs`, in the torch reference's key space, which the
-port's modules share. No code from the checkpoint executes; torch is not
+port's modules share. The only real globals it hands out are an exact list of
+containers and numpy array constructors; any other numpy global, and any
+dotted name, is refused. No code from the checkpoint executes; torch is not
 imported here.
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import pickle
 from typing import Any, Dict, Tuple
@@ -108,28 +111,34 @@ def _make_stub_class(module: str, name: str):
     return type(name, (_StubObject,), {"_stub_name": f"{module}.{name}", "__module__": module})
 
 
+# the only globals returned as themselves: containers, and the constructors an
+# ndarray (protocol 4, and 5's `_frombuffer`), a numpy scalar and a dtype
+# pickle with (numpy 1.x names the modules `numpy.core.*`, numpy 2
+# `numpy._core.*`)
+_ALLOWED = {
+    ("collections", "OrderedDict"): collections.OrderedDict,
+    ("builtins", "set"): set,
+    ("builtins", "frozenset"): frozenset,
+    ("builtins", "dict"): dict,
+    ("builtins", "list"): list,
+    ("numpy", "ndarray"): np.ndarray,
+    ("numpy", "dtype"): np.dtype,
+    **{(f"numpy.{core}.{mod}", name): fn
+       for core in ("core", "_core")
+       for mod, name, fn in (("multiarray", "_reconstruct", np.zeros(0).__reduce__()[0]),
+                             ("multiarray", "scalar", np.float32(0).__reduce__()[0]),
+                             ("numeric", "_frombuffer", np.zeros(1).__reduce_ex__(5)[0]))},
+}
+
+
 class _SafeUnpickler(pickle.Unpickler):
-    ALLOWED = {
-        ("collections", "OrderedDict"),
-        ("builtins", "set"),
-        ("builtins", "frozenset"),
-        ("builtins", "dict"),
-        ("builtins", "list"),
-    }
-
     def find_class(self, module: str, name: str):
-        if (module, name) in self.ALLOWED:
-            import collections
-
-            return {"OrderedDict": collections.OrderedDict, "set": set, "frozenset": frozenset,
-                    "dict": dict, "list": list}[name]
-        if module.startswith("numpy"):
-            import numpy
-
-            obj = numpy
-            for part in (module.split(".")[1:] + name.split(".")):
-                obj = getattr(obj, part)
-            return obj
+        if (module, name) in _ALLOWED:
+            return _ALLOWED[(module, name)]
+        if "." in name or module == "numpy" or module.startswith("numpy."):
+            # a dotted name walks attributes, and numpy's modules reach `os`,
+            # `numpy.load` and `ctypeslib`: either could run code
+            raise pickle.UnpicklingError(f"global {module}.{name} is not allowed")
         if name == "_reconstruct_persistent_obj":
             return _PersistentObj
         if name == "_rebuild_tensor_v2":
@@ -145,8 +154,6 @@ class _SafeUnpickler(pickle.Unpickler):
             return marker
         if module == "torch.storage" and name == "_load_from_bytes":
             return _torch_load_from_bytes
-        if module == "torch" and name.endswith("dtype"):
-            return _make_stub_class(module, name)
         return _make_stub_class(module, name)
 
     def persistent_load(self, pid):

@@ -16,6 +16,7 @@ codes then agree within the float32 bands of the port's other JAX tests.
 """
 
 import collections
+import io
 import pickle
 import sys
 import types
@@ -189,6 +190,44 @@ def test_gan_pkl_loads_alike(tmp_path, reference_pickler):
     for key, tol in (("image_raw", 3e-3), ("image", 8e-3)):
         err = np.abs(out[key].numpy() - np.moveaxis(np.asarray(out_j[key]), -1, 1)).max()
         assert err < tol, (key, err)
+
+
+@pytest.mark.parametrize("module,name,arg", [
+    ("numpy.lib.npyio", "os.system", "exit 0"),  # a dotted name through numpy's `import os`
+    ("numpy", "load", "missing.npy"),
+    ("numpy.ctypeslib", "load_library", "missing"),
+    ("torch_utils.persistence", "os.system", "exit 0"),
+])
+def test_unpickler_refuses_code_globals(module, name, arg):
+    """A forged protocol-4 pickle that calls a global able to run code is
+    refused when the global is looked up, before anything is called."""
+    from invertavatar_torch.utils.pkl_import import safe_load_pickle
+
+    def text(s):
+        b = s.encode()
+        return b"\x8c" + bytes([len(b)]) + b  # SHORT_BINUNICODE
+
+    # PROTO 4, STACK_GLOBAL, (arg,) TUPLE1, REDUCE, STOP
+    forged = b"\x80\x04" + text(module) + text(name) + b"\x93" + text(arg) + b"\x85R."
+    with pytest.raises(pickle.UnpicklingError, match="not allowed"):
+        safe_load_pickle(io.BytesIO(forged))
+
+
+@pytest.mark.parametrize("protocol", [4, 5])
+def test_unpickler_reads_numpy_values(protocol):
+    """Arrays (contiguous and strided), numpy scalars and dtypes, as a
+    checkpoint's kwargs may hold them, read back equal."""
+    from invertavatar_torch.utils.pkl_import import safe_load_pickle
+
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    value = {"a": a, "t": a.T, "s": np.float32(1.5), "i": np.int64(3), "d": np.dtype("f2"),
+             "o": collections.OrderedDict(x=[1, 2])}
+    got = safe_load_pickle(io.BytesIO(pickle.dumps(value, protocol=protocol)))
+    for k in ("a", "t"):
+        np.testing.assert_array_equal(got[k], value[k])
+        assert got[k].dtype == value[k].dtype
+    assert got["s"] == value["s"] and type(got["s"]) is np.float32
+    assert got["i"] == value["i"] and got["d"] == value["d"] and got["o"] == value["o"]
 
 
 def test_inversion_pkl_loads_alike(tmp_path, reference_pickler):

@@ -7,8 +7,9 @@ Tolerances: the coefficient math is float32 matmuls summed in another order,
 the projection to pixels). The driving signal goes through the raster, so
 an edge pixel may fall the other way: the mask channel agrees on ≥ 99.9% of
 pixels; where both sides hit, u and v agree to 1e-4 on ≥ 99.9% of pixels and
-to 1e-2 (about a texel of the 256² UV map) on all, since a pixel on a shared
-edge or at a depth tie may take the neighbouring face.
+to 1e-3 on all. The largest readings: against JAX 3.9e-5 under the suite's
+XLA flags and 1.19e-4 (one pixel of 56,460) with XLA's default optimisation;
+the card against the CPU 1.46e-4 (one pixel of 65,536).
 
     python -m pytest --noconftest -m cuda tests/test_torch_faceverse.py
 """
@@ -173,7 +174,7 @@ def _compare_driving(got, ref):
     both = (got[..., 2] == 1) & (ref[..., 2] == 1)
     assert both.sum() > 1000
     d = np.abs(got[..., :2] - ref[..., :2]).max(-1)[both]
-    assert (d <= 1e-4).mean() >= 0.999 and d.max() < 1e-2, ((d <= 1e-4).mean(), d.max())
+    assert (d <= 1e-4).mean() >= 0.999 and d.max() <= 1e-3, ((d <= 1e-4).mean(), d.max())
     return got
 
 

@@ -150,3 +150,59 @@ def test_gru_unets_bf16_match_jax(kind):
             _assert_rel(a, b, 0.05)
         for a, b in zip(r_t, r_j):
             _assert_rel(a, b, 0.05)
+
+
+def _assert_stored_bf16(module):
+    """Conv and PReLU weights in bf16, BatchNorm parameters and statistics in
+    float32."""
+    from invertavatar_torch.models.encoders.irse import BatchNorm, Conv2d, PReLU
+
+    for m in module.modules():
+        if isinstance(m, (Conv2d, PReLU)):
+            assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+        elif isinstance(m, BatchNorm):
+            assert all(t.dtype == torch.float32 for t in (*m.parameters(), *m.buffers()))
+
+
+@pytest.mark.parametrize("kind", ["texture", "sft"])
+def test_stored_bf16_weights_match_cast_per_op(kind):
+    """`store_weights_in(bfloat16)` rounds the conv and PReLU weights once
+    and leaves BatchNorm in float32: over two chunks of T=2 the outputs and
+    states equal, bit for bit, those of the float32 module casting per op."""
+    import copy
+
+    from invertavatar_torch.models.encoders.irse import store_weights_in
+
+    torch.manual_seed(4)
+    if kind == "texture":
+        per_op = TriPlanefeatEncoder(7, res=None, use_gru=True, out_channels=OUT_CH,
+                                     trunk_layers_n=8).eval()
+    else:
+        per_op = TriPlaneSFTfeatEncoder(6, res=None, use_gru=True, channel_base=CB,
+                                        channel_max=CM, trunk_layers_n=8).eval()
+    stored = store_weights_in(copy.deepcopy(per_op), torch.bfloat16)
+    _assert_stored_bf16(stored)
+    rng = np.random.RandomState(6)
+    r_a = r_b = None
+    for _ in range(2):
+        x = torch.from_numpy(rng.randn(1, 2, 7 if kind == "texture" else 6, 64, 64)
+                             .astype(np.float32)).to(torch.bfloat16)
+        with torch.no_grad():
+            out_a, r_a = per_op(x, r_a)
+            out_b, r_b = stored(x, r_b)
+        for a, b in zip(_flat(out_a) + list(r_a), _flat(out_b) + list(r_b)):
+            assert a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_inversion_net_stores_unet_weights_in_eval_dtype():
+    """`InversionNet(unet_eval_dtype=bfloat16)` holds both U-Nets' conv and
+    PReLU weights in bf16, their BatchNorms and everything else in float32."""
+    from invertavatar_torch.models.encoders import InversionNet
+    from tests.test_torch_fewshot import FS_GEN_CFG
+
+    net = InversionNet(FS_GEN_CFG, encoding_texture=True, encoding_triplane=True,
+                       texture_out_channels=OUT_CH, unet_eval_dtype=torch.bfloat16,
+                       trunk_layers_n=8)
+    _assert_stored_bf16(net.unet_encoder)
+    assert all(t.dtype == torch.float32 for n, t in net.state_dict().items()
+               if not n.startswith("unet_encoder.") and t.is_floating_point())
