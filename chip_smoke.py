@@ -51,6 +51,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      of T=4 of seeded 512² frames (the first with the e4e render caches),
      timed over repetitions with the peak memory; B1 and B2 must launch 4
      times each per chunk; then 20 online frames drive the absorbed avatar
+ 14. one-shot, small config: a tiny-e4e-trunk `InversionNet` with the
+     full-width SegFormer U-Nets (float32) inverts one frame
+     (`cli/eval_os.invert_source`) and drives it 5 frames on the card and on
+     the CPU; features and frames compared
+ 15. one-shot, full width: the flagship eval generator with an IR-SE-50 e4e
+     encoder and the SegFormer U-Nets (`oneshot_inversion_net`) inverts one
+     seeded 512² frame, timed over repetitions with the peak memory; B1 and
+     B2 must launch twice per inversion (the prefix and the final render);
+     then 20 online frames drive the inverted avatar (once per frame)
+ 16. a tiny GAN step (the JAX dry run's models) on the card against the CPU:
+     Gmain and Dmain with R1, every draw the two would make differently
+     removed; losses and both networks' gradients, and the density TV at
+     shared points
+ 17. GAN training at flagship width through `train_gan`: the generator
+     (channel_base 32768, channel_max 512, neural rendering 64², 48+48
+     samples) against the dual discriminator at 512² (6 channels, bf16 top
+     4 resolutions), batch 4, 6 steps (step 0 with both lazy
+     regularisations, step 4 with the density TV, the rest with neither),
+     then 3 warm steps with both; ms/step and the peak memory; losses,
+     parameters and the EMA finite; no B1/B2 launch (training renders are
+     not evaluation renders)
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -65,6 +86,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
@@ -79,6 +101,12 @@ B3_PER_STEP, B3T_PER_STEP = 6, 4
 N_ONLINE = 20  # timed online-driving frames (phases 11, 13)
 FEWSHOT_T = 4  # source frames per absorb chunk (phase 13)
 N_ABSORB_REPS = 3  # timed absorbs of 2 chunks (phase 13)
+N_ONESHOT_SMALL = 5  # driven frames of the small one-shot avatar, card vs CPU (phase 14)
+N_ONESHOT_REPS = 3  # timed one-shot inversions (phase 15)
+GAN_BATCH = 4  # the reference's per-GPU batch (32 over 8 GPUs)
+N_GAN_STEPS = 6  # flagship GAN steps (phase 17): step 0 runs both regularisations,
+# step 4 the density TV, the others neither
+N_GAN_REG_TIMED = 3  # warm steps with both regularisations, timed after the run
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
 # the tensor cores, HBM3 rate
@@ -766,6 +794,270 @@ def fewshot_phases(torch, dev, card, fr, mgr, traj):
     return absorb_launches, drive_launches
 
 
+def oneshot_phases(torch, dev, card, fr, mgr, traj):
+    """Phases 14-15; returns the B1/B2 launches of the inversions and of the
+    driven frames."""
+    from invertavatar_torch.cli import eval_os, eval_seq as es
+    from invertavatar_torch.faceverse.synthetic import synthetic_source_clip
+    from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS, oneshot_inversion_net
+
+    # ---------------------------------------------------------------- phase 14
+    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
+                 sr_num_fp16_res=0, neural_rendering_resolution=32, channel_base=2048,
+                 channel_max=128, num_fp16_res=0, map_num_layers=2,
+                 rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS, depth_resolution=12,
+                                       depth_resolution_importance=12, tile_shape=(16, 4)))
+    image, uv, cam, uvc = synthetic_source_clip(mgr, traj, 1, seed=14)
+    drive_uvc = [mgr.make_driven_rendering(traj[N_WARMUP + i]) for i in range(N_ONESHOT_SMALL)]
+    net_cpu = oneshot_inversion_net(small, trunk_layers_n=8, seed=3, device="cpu")
+    net_gpu = oneshot_inversion_net(small, trunk_layers_n=8, seed=3, device=dev)
+    net_gpu.load_state_dict(net_cpu.state_dict())
+    outs = []
+    for n, d in ((net_gpu, dev), (net_cpu, torch.device("cpu"))):
+        with torch.inference_mode():
+            avatar = eval_os.invert_source(n, image.to(d), cam.to(d), uv.to(d), uvc.to(d))
+            caches = es.drive_caches(n, avatar)
+            frames = [es.render_drive_frame(n, avatar, caches, cam.to(d), u.to(d))
+                      for u in drive_uvc]
+        outs.append(([t.float().cpu() for t in avatar["texture"] + avatar["static"]],
+                     torch.cat([f.float().cpu() for f in frames])))
+    del net_cpu, net_gpu
+    (feats_g, frames_g), (feats_c, frames_c) = outs
+    # float32 on both sides with TF32 off: the features to 1e-3 of each
+    # tensor's scale (phase 12's bar); the frames within phase 5's bands (the
+    # card's renders take B1/B2 and their bf16 planes, the CPU's the plain
+    # versions)
+    worst = 0.0
+    for a, b in zip(feats_g, feats_c):
+        scale = b.abs().max().item() + 1e-6
+        e = (a - b).abs()
+        worst = max(worst, e.max().item() / scale)
+        if not (torch.isfinite(a).all() and e.max() <= 1e-3 * scale
+                and e.mean() <= 1e-4 * scale):
+            fail(f"one-shot small config: card and CPU features differ by {e.max().item():.3e} "
+                 f"max, {e.mean().item():.3e} mean at scale {scale:.3e}")
+    e = (frames_g - frames_c).abs()
+    print(f"[14] one-shot small config (tiny e4e trunk, full-width SegFormer U-Nets, float32): "
+          f"inversion + {N_ONESHOT_SMALL} driven frames; {len(feats_g)} features, card vs CPU "
+          f"max|d| {worst:.3e} of each tensor's scale (<= 1e-3; mean <= 1e-4); frames "
+          f"{tuple(frames_g.shape)} max {e.max().item():.3e} (< 1e-1) mean "
+          f"{e.mean().item():.3e} (< 1e-2)")
+    if not (torch.isfinite(frames_g).all() and e.max() < 1e-1 and e.mean() < 1e-2):
+        fail("one-shot small config: the driven frames on the card disagree with the CPU")
+    del outs, feats_g, feats_c, frames_g, frames_c
+
+    # ---------------------------------------------------------------- phase 15
+    t0 = time.perf_counter()
+    net = oneshot_inversion_net(device=dev)
+    image, uv, cam, uvc = synthetic_source_clip(mgr, traj, 1, seed=15)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.unet_encoder.parameters())
+    print(f"[15] one-shot network built (flagship eval generator, IR-SE-50 e4e encoder, "
+          f"SegFormer U-Nets {n_params / 1e6:.1f} M parameters in float32), weights and a 512² "
+          f"source frame ready in {time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        eval_os.invert_source(net, image, cam, uv, uvc)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fr.fused_render.launches = fr.fused_merged_march.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(N_ONESHOT_REPS):
+            avatar = eval_os.invert_source(net, image, cam, uv, uvc)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / N_ONESHOT_REPS
+        invert_launches = {"fused_render": fr.fused_render.launches,
+                           "fused_merged_march": fr.fused_merged_march.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[15] one-shot inversion (encode, prefix render, both SegFormer U-Nets, SFT "
+          f"backbone, final render; 512²): {secs:.4f} s per inversion over {N_ONESHOT_REPS} "
+          f"(host clock); peak memory {peak:.3f} GiB on {card}; launches {invert_launches}; "
+          f"render mean {avatar['image'].float().mean().item():.4f}")
+    expect = 2 * N_ONESHOT_REPS  # the prefix render and the final render
+    if invert_launches != {"fused_render": expect, "fused_merged_march": expect}:
+        fail(f"the one-shot inversion launched B1/B2 {invert_launches} times, expected 2 each "
+             f"per inversion ({expect} in {N_ONESHOT_REPS})")
+    feats = avatar["texture"] + avatar["static"] + [avatar["image"]]
+    if tuple(avatar["image"].shape) != (1, 3, 512, 512) or not all(
+            torch.isfinite(t.float()).all() for t in feats):
+        fail("the one-shot avatar's features or render are not finite [1, 3, 512, 512]")
+    with torch.inference_mode():
+        caches = es.drive_caches(net, avatar)
+
+        def frame(coeff):
+            return es.render_drive_frame(net, avatar, caches, cam, manager=mgr, coeff=coeff)
+
+        ms, drive_launches, img = online_frames(torch, fr, frame, traj, "one-shot drive")
+    print(f"[15] one-shot drive: {N_ONLINE} online frames of the inverted avatar, {ms:.3f} "
+          f"ms/frame, {1e3 / ms:.3f} frames/s (host clock, B=1) on {card}; launches "
+          f"{drive_launches}; image mean {img.float().mean().item():.4f}")
+    del net, avatar, caches
+    return invert_launches, drive_launches
+
+
+def gan_phases(torch, dev, card):
+    """Phases 16-17: a tiny GAN step on the card against the CPU, then
+    `train_gan` at flagship width for `N_GAN_STEPS` steps of batch 4, then
+    warm steps with both regularisations."""
+    import tempfile
+
+    import numpy as np
+
+    from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS, example_inputs
+    from invertavatar_torch.models.discriminator import DualDiscriminator
+    from invertavatar_torch.models.triplane import TriPlaneGenerator
+    from invertavatar_torch.train import gan as pg
+    from invertavatar_torch.train.loop_gan import GANTrainConfig, train_gan
+    from invertavatar_torch.train.state import LazyRegAdam, TrainState
+
+    def batch_on(d, B, res, z_dim, seed):
+        z, c, uvc = example_inputs(B, seed=seed)
+        img = np.random.RandomState(seed).randn(B, 3, res, res).astype(np.float32)
+        return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c).to(d),
+                "v": {"uvcoords_image": torch.from_numpy(uvc).to(d)},
+                "z": torch.from_numpy(z[:, :z_dim]).to(d)}
+
+    # ---------------------------------------------------------------- phase 16
+    # the JAX dry run's tiny models, every draw the card and the CPU would
+    # make differently removed: no synthesis noise (noise_strength 0), middle
+    # strata, no importance pass, no conditioning swap; the density TV at
+    # the same points on both sides
+    rk = {"superresolution_module": "x.SuperresolutionHybrid2X", "c_gen_conditioning_zero": False,
+          "c_scale": 1.0, "superresolution_noise_mode": "random", "density_reg": 0.25,
+          "density_reg_p_dist": 0.004, "reg_type": "l1", "decoder_lr_mul": 1.0,
+          "sr_antialias": True, "depth_resolution": 8, "depth_resolution_importance": 0,
+          "box_warp": 1.0, "det_stratified": True}
+    tiny = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,
+                rendering_kwargs=rk, neural_rendering_resolution=32, channel_base=1024,
+                channel_max=64, map_num_layers=2)
+    d_cfg = dict(c_dim=25, img_resolution=128, img_channels=6, channel_base=1024,
+                 channel_max=64, num_fp16_res=0)
+    cfg = pg.GANLossConfig(neural_rendering_resolution_initial=32,
+                           neural_rendering_resolution_final=None, blur_init_sigma=10.0,
+                           blur_fade_kimg=8.0)
+    torch.manual_seed(16)
+    G0, D0 = TriPlaneGenerator(**tiny), DualDiscriminator(**d_cfg)
+    with torch.no_grad():
+        for name, p in G0.named_parameters():
+            if name.endswith("noise_strength"):
+                p.zero_()
+    points = torch.rand((2, 1000, 3), generator=torch.Generator().manual_seed(16)) * 2 - 1
+    points = torch.cat([points, points + torch.randn(points.shape) * 0.004], dim=1)
+    results = []
+    for d in (dev, torch.device("cpu")):
+        G, D = TriPlaneGenerator(**tiny).to(d), DualDiscriminator(**d_cfg).to(d)
+        G.load_state_dict(G0.state_dict())
+        D.load_state_dict(D0.state_dict())
+        gs = TrainState(G, LazyRegAdam(G.parameters(), 0.0025, 0.0, 0.99, 1e-8, 4))
+        ds = TrainState(D, LazyRegAdam(D.parameters(), 0.002, 0.0, 0.99, 1e-8, 16))
+        batch = batch_on(d, 2, 128, 32, 16)
+        sched = pg.make_schedules(cfg, 1000)
+        step = pg.make_gan_train_step(G, D, cfg, 32, do_greg=False, do_dreg=True)
+        m = {k: float(v) for k, v in step(gs, ds, batch, sched,
+                                          torch.Generator(device=d).manual_seed(0),
+                                          apply=False).items()}
+        grads = {f"G.{k}": p.grad.detach().cpu() for k, p in G.named_parameters()}
+        grads.update({f"D.{k}": p.grad.detach().cpu() for k, p in D.named_parameters()})
+        with torch.no_grad():
+            m["density_tv"] = float(pg.density_tv(G, batch["z"], batch["c"], batch["v"], sched,
+                                                  cfg, coords=points.to(d)))
+        results.append((m, grads))
+        del G, D, gs, ds
+    (m_g, grads_g), (m_c, grads_c) = results
+    for k in sorted(m_c):
+        print(f"[16] tiny GAN step {k}: card {m_g[k]:.7g} CPU {m_c[k]:.7g}")
+    bad = [k for k in m_c if not abs(m_g[k] - m_c[k]) <= 1e-3 * abs(m_c[k]) + 1e-6]
+    if sorted(m_g) != sorted(m_c) or bad:
+        fail(f"the tiny GAN step on the card disagrees with the CPU on {bad}")
+    # gradients to 1e-3 of each network's largest gradient entry: float32
+    # sums in other orders through ~60 layers and R1's double backward
+    for net in ("G", "D"):
+        keys = [k for k in grads_c if k.startswith(net + ".")]
+        scale = max(grads_c[k].abs().max().item() for k in keys)
+        worst = max((grads_g[k] - grads_c[k]).abs().max().item() for k in keys) / scale
+        print(f"[16] tiny GAN step {net} gradients: max|card-cpu| {worst:.3e} of the largest "
+              f"entry {scale:.3e} (< 1e-3)")
+        if not worst < 1e-3:
+            fail(f"the tiny GAN step's {net} gradients differ between card and CPU")
+    del results, G0, D0
+
+    # ---------------------------------------------------------------- phase 17
+    rk = dict(FLAGSHIP_RENDERING_KWARGS, c_gen_conditioning_zero=True, gpc_reg_prob=None,
+              density_reg=0.25, superresolution_noise_mode="random", det_stratified=False,
+              depth_resolution=48, depth_resolution_importance=48)
+    t0 = time.perf_counter()
+    torch.manual_seed(17)
+    with torch.device(dev):
+        G = TriPlaneGenerator(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
+                              img_channels=3, rendering_kwargs=rk,
+                              neural_rendering_resolution=64, channel_base=32768,
+                              channel_max=512, map_num_layers=2)
+        D = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=6, channel_base=32768,
+                              channel_max=512, num_fp16_res=4)
+    batches = [batch_on(dev, GAN_BATCH, 512, 512, 170 + i) for i in range(N_GAN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"[17] GAN models built: G {sum(p.numel() for p in G.parameters()) / 1e6:.1f} M, D "
+          f"{sum(p.numel() for p in D.parameters()) / 1e6:.1f} M parameters (channel_base "
+          f"32768, channel_max 512; D at 512², 6 channels, bf16 top 4 resolutions) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    times, metrics = [], []
+
+    def on_step(step_idx, cur_nimg, m):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        metrics.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = GANTrainConfig(run_dir=run_dir, batch_size=GAN_BATCH, snapshot_images=False,
+                             loss=pg.GANLossConfig(blur_init_sigma=10.0, blur_fade_kimg=200.0,
+                                                   neural_rendering_resolution_initial=64,
+                                                   neural_rendering_resolution_fade_kimg=1000))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        g_state, d_state, G_ema, nimg = train_gan(G, D, iter(batches), cfg,
+                                                  max_steps=N_GAN_STEPS, on_step=on_step,
+                                                  device=dev)
+        snaps = [f for f in os.listdir(run_dir) if f.startswith("snapshot-")]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    regs = [("Greg" if "Loss/G/reg" in m else "") + ("+R1" if "Loss/r1_penalty" in m else "")
+            for m in metrics]
+    for i, (ms, m) in enumerate(zip(step_ms, metrics)):
+        print(f"[17] GAN step {i} ({regs[i] or 'no regularisation'}): {ms:.3f} ms (host "
+              f"clock{'; the first call of each op' if i < 2 else ''}) " +
+              " ".join(f"{k}={v:.6g}" for k, v in m.items()))
+    # steps 0 and 1 are the first of their graphs (with and without R1)
+    warm = [ms for i, ms in enumerate(step_ms) if i >= 2 and not regs[i]]
+    # both regularisations once more on the trained state, now warm
+    reg_step = pg.make_gan_train_step(G, D, cfg.loss, 64, do_greg=True, do_dreg=True)
+    sched = pg.make_schedules(cfg.loss, nimg)
+    reg_ms = []
+    for i in range(N_GAN_REG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = reg_step(g_state, d_state, batches[i], sched, torch.Generator(device=dev).manual_seed(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+        reg_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[17] GAN training at flagship width, batch {GAN_BATCH}, nrr 64, 48+48 samples: "
+          f"{N_GAN_STEPS} steps of `train_gan`; {np.median(warm):.3f} ms/step (median of the "
+          f"{len(warm)} warm steps without regularisation, {', '.join(f'{x:.3f}' for x in warm)}"
+          f"); a step with the density TV and R1 {np.median(reg_ms):.3f} ms (median of "
+          f"{N_GAN_REG_TIMED} warm ones, {', '.join(f'{x:.3f}' for x in reg_ms)}); peak memory "
+          f"{peak:.3f} GiB on {card}; snapshot {snaps}")
+    if regs != ["Greg+R1", "", "", "", "Greg", ""][:N_GAN_STEPS]:
+        fail(f"the steps ran the regularisations {regs}, expected both at step 0, the density TV "
+             "at step 4 and neither elsewhere")
+    if nimg != GAN_BATCH * N_GAN_STEPS or len(snaps) != 1:
+        fail(f"train_gan counted {nimg} images and wrote {snaps}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail("a GAN step gave a non-finite loss")
+    for name, mod in (("G", g_state.module), ("D", d_state.module), ("G_ema", G_ema)):
+        if not all(torch.isfinite(t).all() for t in mod.state_dict().values()
+                   if t.is_floating_point()):
+            fail(f"a parameter or buffer of {name} is not finite after {N_GAN_STEPS} steps")
+    del G, D, g_state, d_state, G_ema, batches
+
+
 def main(argv=None):
     import argparse
 
@@ -913,12 +1205,26 @@ def main(argv=None):
     mgr, traj, online_launches = online_phase(torch, dev, card, fr)
     torch.cuda.empty_cache()
     absorb_launches, drive_launches = fewshot_phases(torch, dev, card, fr, mgr, traj)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phases 14-17
+    invert_launches, os_drive_launches = oneshot_phases(torch, dev, card, fr, mgr, traj)
+    del mgr, traj
+    torch.cuda.empty_cache()
+    fr.fused_render.launches = fr.fused_merged_march.launches = 0
+    gan_phases(torch, dev, card)
+    gan_launches = {"fused_render": fr.fused_render.launches,
+                    "fused_merged_march": fr.fused_merged_march.launches}
     for k in kernels:
         if k["name"] in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
                                      "online": online_launches[k["name"]],
                                      "fewshot_absorb": absorb_launches[k["name"]],
-                                     "fewshot_drive": drive_launches[k["name"]]}
+                                     "fewshot_drive": drive_launches[k["name"]],
+                                     "oneshot_invert": invert_launches[k["name"]],
+                                     "oneshot_drive": os_drive_launches[k["name"]],
+                                     "gan_train": gan_launches[k["name"]]}
+    print(f"[18] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

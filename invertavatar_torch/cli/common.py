@@ -13,10 +13,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-
-def normalize_image(img_u8: np.ndarray) -> np.ndarray:
-    """uint8 pixels -> float32 in [-1, 1]."""
-    return img_u8.astype(np.float32) / 127.5 - 1.0
+from ..data.dataset import normalize_image
 
 
 def load_drive_sequence(drive_root: str, max_frames: Optional[int] = None) -> List[Dict]:

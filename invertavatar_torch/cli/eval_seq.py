@@ -105,7 +105,7 @@ def _load_source_uv(uv_dir: str, stem: str) -> np.ndarray:
     vertex image (`<stem>.npy`)."""
     import PIL.Image
 
-    from .common import normalize_image
+    from ..data.dataset import normalize_image
 
     uv_pverts = np.load(os.path.join(uv_dir, stem + ".npy")).astype(np.float32)[..., :3]
     tex = np.array(PIL.Image.open(os.path.join(uv_dir, stem + "_uvgttex.png")).convert("RGB"))

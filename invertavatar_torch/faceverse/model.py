@@ -33,11 +33,45 @@ class FaceVerseAssets(NamedTuple):
     meantex: Optional[np.ndarray] = None  # [1, 3V]
 
 
+def _is_plain(v) -> bool:
+    """An array of numbers, a number, a string, or a list or tuple of those."""
+    if isinstance(v, np.ndarray):
+        return v.dtype.kind in "biuf"
+    if isinstance(v, (list, tuple)):
+        return all(_is_plain(x) for x in v)
+    return isinstance(v, (bool, int, float, str, np.number, np.bool_))
+
+
+def load_model_dict(model_path: str) -> dict:
+    """The dict of an object `.npy` (as `np.save` writes a dict), read without
+    running code: the header by `np.lib.format`, the pickled payload by the
+    sandboxed unpickler (`utils.pkl_import.safe_load_pickle`, an exact list of
+    allowed globals). Raises `ValueError` unless the result is a dict of
+    numeric arrays, numbers, strings and lists of those."""
+    from ..utils.pkl_import import safe_load_pickle
+
+    with open(model_path, "rb") as f:
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            _, _, dtype = np.lib.format.read_array_header_1_0(f)
+        else:
+            _, _, dtype = np.lib.format.read_array_header_2_0(f)
+        if not dtype.hasobject:
+            raise ValueError(f"{model_path}: not a pickled dict (dtype {dtype})")
+        arr = safe_load_pickle(f)
+    d = arr.item() if isinstance(arr, np.ndarray) and arr.shape == () else arr
+    if not (isinstance(d, dict) and all(isinstance(k, str) and _is_plain(v)
+                                        for k, v in d.items())):
+        raise ValueError(f"{model_path}: not a dict of arrays, lists and numbers")
+    return d
+
+
 def load_faceverse_assets(model_path: str, exp_base_path: Optional[str] = None) -> FaceVerseAssets:
-    """Load the published model dict: meanshape, idBase and exBase get y, z
-    negated and ×0.1, meanshape y += 1. `exp_base_path` takes the 52-blendshape
-    expression basis from its own `.npy`."""
-    model_dict = np.load(model_path, allow_pickle=True).item()
+    """Load the published model dict (`load_model_dict`, which runs no code
+    from the file): meanshape, idBase and exBase get y, z negated and ×0.1,
+    meanshape y += 1. `exp_base_path` takes the 52-blendshape expression basis
+    from its own `.npy` (a plain array; `np.load` refuses pickles there)."""
+    model_dict = load_model_dict(model_path)
 
     meanshape = model_dict["meanshape"].reshape(-1, 3).astype(np.float32)
     meanshape[:, [1, 2]] *= -1

@@ -106,6 +106,29 @@ def fewshot_inversion_net(generator_cfg=None, trunk_layers_n: int = 50, seed: in
     return net.eval()
 
 
+def oneshot_inversion_net(generator_cfg=None, trunk_layers_n: int = 50, seed: int = 0,
+                          device="cuda"):
+    """The one-shot stage's network on `device` (CUDA by default): the
+    flagship eval generator (`flagship_config()`) unless `generator_cfg` is
+    given, filled by `init_flagship(seed)`; the e4e encoder (`trunk_layers_n`
+    deep; 8: the tiny test trunk) and both SegFormer U-Nets (IR-SE-50 trunks
+    and ViT decoders, float32) with torch's default initialisation drawn
+    after `torch.manual_seed(seed)`."""
+    from .models.encoders import InversionNet, texture_out_channels_for
+
+    cfg = flagship_config() if generator_cfg is None else dict(generator_cfg)
+    device = resolve_device(device)
+    torch.manual_seed(seed)
+    with torch.device(device):
+        net = InversionNet(cfg, encoding_texture=True, encoding_triplane=True,
+                           unet_type="segformer",
+                           texture_out_channels=texture_out_channels_for(cfg["channel_base"],
+                                                                         cfg["channel_max"]),
+                           trunk_layers_n=trunk_layers_n)
+    init_flagship(net.generator, seed=seed)
+    return net.eval()
+
+
 def example_inputs(batch: int = 1, seed: int = 0):
     """(z, c, uvcoords_image) as numpy arrays: a frontal camera and a synthetic
     face mask with a mouth hole."""

@@ -183,6 +183,11 @@ def _cond_head(in_ch: int, out_ch: int) -> nn.Sequential:
                          Conv2d(in_ch, out_ch, 3, 1, 1))
 
 
+def _final_head() -> nn.Sequential:
+    """The 256² SFT head's trunk: 24 -> 96 channels, two (conv, PReLU)."""
+    return nn.Sequential(Conv2d(24, 96, 3, 1, 1), PReLU(96), Conv2d(96, 96, 3, 1, 1), PReLU(96))
+
+
 class TriPlaneSFTfeatEncoder(_UNetBase):
     """triplane_unet: [B, T, 6, 256, 256] (image 3, Δimage 3) -> {res:
     (scale, shift)} for 16…256 with the GRU states. The widths follow the
@@ -200,8 +205,7 @@ class TriPlaneSFTfeatEncoder(_UNetBase):
             ch = ch // 2 if sft_half else ch
             self.add_module(f"condition_scale{r}", _cond_head(body, ch))
             self.add_module(f"condition_shift{r}", _cond_head(body, ch))
-        self.final_head = nn.Sequential(Conv2d(24, 96, 3, 1, 1), PReLU(96),
-                                        Conv2d(96, 96, 3, 1, 1), PReLU(96))
+        self.final_head = _final_head()
 
     def _heads(self, r: int, tp: torch.Tensor):
         return getattr(self, f"condition_scale{r}")(tp), getattr(self, f"condition_shift{r}")(tp)

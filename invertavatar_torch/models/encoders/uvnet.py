@@ -4,15 +4,18 @@ Counterpart of `invertavatar_tpu/models/encoders/uvnet.py`: `InversionNet`
 holds the frozen tri-plane `generator`, the e4e `encoder`, the ConvGRU U-Nets
 `unet_encoder.{texture_unet, triplane_unet}` of the few-shot stage and the
 `latent_avg` / `black_uv_bg` buffers, with the torch reference's names.
-`encode` gives the W+ codes; `ar_forward` absorbs a chunk of source frames
-into the avatar's features, carrying the GRU states across chunks (the
-streaming few-shot path of `cli/eval_seq.py`).
+The U-Nets are the ConvGRU ones of the few-shot stage (`unet_type="gru"`) or
+the SegFormer decoders of the improved one-shot network
+(`unet_type="segformer"`). `encode` gives the W+ codes; `prefix` and the
+single-frame `forward` invert one frame (the one-shot path of
+`cli/eval_os.py`); `ar_forward` absorbs a chunk of source frames into the
+avatar's features, carrying the GRU states across chunks (the streaming
+few-shot path of `cli/eval_seq.py`).
 
 Unlike the JAX package, whose modules make no variables until they run, the
 port builds the U-Nets only when `encoding_texture` / `encoding_triplane` ask
-for them (the e4e stage holds none). Not ported yet: the SegFormer one-shot
-U-Nets (`unet_type="segformer"`, ROADMAP A9) and the training rollouts
-(`__call__`, `prefix`, `run_seq`, `run_seq_multiT`, ROADMAP A11).
+for them (the e4e stage holds none). Not ported yet: the training rollouts
+`run_seq` and `run_seq_multiT` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -41,17 +44,27 @@ def texture_out_channels_for(channel_base: int, channel_max: int) -> Tuple[int, 
 
 class UnetEncoderPair(nn.Module):
     """The reference's `unet_encoder` container: `texture_unet` and
-    `triplane_unet`, each present when asked for."""
+    `triplane_unet`, each present when asked for; ConvGRU U-Nets (`"gru"`,
+    `trunk_layers_n` deep) or SegFormer decoders (`"segformer"`, always the
+    IR-SE-50 trunk, as in the JAX package)."""
 
     def __init__(self, encoding_texture: bool = True, encoding_triplane: bool = True,
                  unet_type: str = "gru",
                  texture_out_channels: Tuple[int, int, int, int] = (32, 512, 512, 256),
                  channel_base: int = 32768, channel_max: int = 512, trunk_layers_n: int = 50):
         super().__init__()
+        if unet_type == "segformer":
+            from .transformer import TriPlanefeatSegformerDecoder, TriPlaneSFTfeatSegformerDecoder
+
+            self.texture_unet = (TriPlanefeatSegformerDecoder(
+                inp_ch=7, res=256, out_channels=texture_out_channels)
+                if encoding_texture else None)
+            self.triplane_unet = (TriPlaneSFTfeatSegformerDecoder(
+                inp_ch=6, res=256, channel_base=channel_base, channel_max=channel_max)
+                if encoding_triplane else None)
+            return
         if unet_type != "gru":
-            raise NotImplementedError(
-                f"unet_type={unet_type!r}: the SegFormer one-shot U-Nets are not ported yet "
-                "(ROADMAP A9)")
+            raise ValueError(f"unet_type={unet_type!r}: expected 'gru' or 'segformer'")
         self.texture_unet = (TriPlanefeatEncoder(inp_ch=7, res=256, use_gru=True,
                                                  out_channels=texture_out_channels,
                                                  trunk_layers_n=trunk_layers_n)
@@ -76,6 +89,7 @@ class InversionNet(nn.Module):
         None keeps float32. `trunk_layers_n=8` builds the tiny test trunks."""
         super().__init__()
         self.generator = TriPlaneGenerator(**generator_cfg)
+        self.unet_type = unet_type
         self.encoder = Encoder4Editing(n_styles=n_styles, inp_ch=3, trunk_layers_n=trunk_layers_n)
         self.unet_eval_dtype = unet_eval_dtype
         if encoding_texture or encoding_triplane:
@@ -109,6 +123,59 @@ class InversionNet(nn.Module):
         mask = uv_pverts[:, 2:3]
         uv_delta = uv_delta * mask + self.black_uv_bg * (1 - mask)
         return torch.cat([uv_gttex, uv_delta, mask], dim=1)
+
+    @torch.no_grad()
+    def prefix(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
+               evaluation: bool = False) -> Dict[str, Any]:
+        """The gradient-free prefix of `forward`: the e4e W+ codes, the
+        texture pyramid, and the e4e render aligned to the input frames.
+
+        x {"image": [B, 3, H, W]}; cam [B, 25]; v {"uvcoords_image"}.
+        Returns {"w", "texture", "e4e_image"}."""
+        G = self.generator
+        ws = self.encode(x["image"][:, :3])
+        tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+        static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
+        e4e_image = G.synthesis_withTexture(ws, tex, cam, v, static_feats=static,
+                                           noise_mode="const", evaluation=evaluation)["image"]
+        if e4e_image.shape[2] != x["image"].shape[2]:
+            # shrunken test generators render at another size than the frames
+            e4e_image = resize_bilinear(e4e_image, tuple(x["image"].shape[2:]), antialias=True)
+        return {"w": ws, "texture": tex, "e4e_image": e4e_image}
+
+    def forward(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
+                return_feats: bool = False, evaluation: bool = False):
+        """Invert one frame per item: x {"image": [B, 3, H, W], "uv": [B, 6,
+        256, 256]}, cam [B, 25], v {"uvcoords_image": [B, 256, 256, 3]}.
+
+        The prefix (`prefix`) carries no gradient; the U-Nets refine the
+        texture pyramid and condition the static backbone, and the refined
+        avatar is rendered. Returns the render's dict with "w" and
+        "e4e_image", and with `return_feats` the refined "texture" and
+        "static" feature lists."""
+        G = self.generator
+        pre = self.prefix(x, cam, v, evaluation=evaluation)
+        ws, tex, e4e_image = pre["w"], pre["texture"], pre["e4e_image"]
+        delta_x = e4e_image - x["image"][:, :3]
+        uv_input = self.get_unet_uvinput(x["uv"], delta_x)
+        tri_input = torch.cat([x["image"][:, :3], delta_x], dim=1)
+        if self.unet_type == "gru":
+            tex_offsets, _ = self.unet_encoder.texture_unet(uv_input[:, None])
+            sft, _ = self.unet_encoder.triplane_unet(tri_input[:, None])
+        else:
+            tex_offsets = self.unet_encoder.texture_unet(uv_input)
+            sft = self.unet_encoder.triplane_unet(tri_input)
+        texture_feats = [f + o for f, o in zip(tex, tex_offsets)] + list(tex[len(tex_offsets):])
+        static_feats = G.backbone.synthesis(ws, return_list=True, feat_conditions=sft,
+                                            noise_mode="const")
+        out = G.synthesis_withTexture(ws, texture_feats, cam, v, static_feats=static_feats,
+                                      noise_mode="const", evaluation=evaluation)
+        if return_feats:
+            out["texture"] = texture_feats
+            out["static"] = static_feats
+        out["w"] = ws
+        out["e4e_image"] = e4e_image
+        return out
 
     def ar_forward(self, x: Dict[str, torch.Tensor], vid_c: torch.Tensor,
                    vid_v: Dict[str, torch.Tensor], ws: Optional[torch.Tensor], r_list: List,

@@ -52,6 +52,36 @@ class FullyConnectedLayer(nn.Module):
         return bias_act(x, b, act=self.activation)
 
 
+class Conv2dLayer(nn.Module):
+    """Equalized-lr conv with optional FIR up/downsampling, bias, activation,
+    gain and clamp. It computes in its input's dtype (the discriminator's
+    bf16 blocks cast their input)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True,
+                 activation: str = "linear", up: int = 1, down: int = 1,
+                 resample_filter: Sequence[int] = (1, 3, 3, 1),
+                 conv_clamp: Optional[float] = None):
+        super().__init__()
+        self.activation = activation
+        self.up = up
+        self.down = down
+        self.conv_clamp = conv_clamp
+        self.padding = kernel_size // 2
+        self.weight_gain = 1 / math.sqrt(in_channels * kernel_size ** 2)
+        self.register_buffer("resample_filter", setup_filter(resample_filter), persistent=False)
+        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size,
+                                                kernel_size]))
+        self.bias = nn.Parameter(torch.zeros([out_channels])) if bias else None
+
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        w = (self.weight * self.weight_gain).to(x.dtype)
+        x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.padding, flip_weight=(self.up == 1))
+        act_gain = def_gain(self.activation) * gain
+        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
+
+
 def modulated_conv2d(
     x: torch.Tensor,  # [B, Cin, H, W]
     weight: torch.Tensor,  # [Cout, Cin, kh, kw]

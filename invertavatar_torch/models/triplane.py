@@ -307,6 +307,32 @@ class TriPlaneGenerator(nn.Module):
                                  _to_planes(static_feats[-1]), evaluation, generator,
                                  rendering_overrides)
 
+    # ------------------------------------------------------------ density probes
+    def sample_mixed(self, coordinates: torch.Tensor, ws: torch.Tensor,
+                     mesh_condition: Dict[str, torch.Tensor], noise_mode: str = "random",
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Density and colour at points [B, M, 3] of the avatar of `ws`: the
+        blended tri-planes of `synthesis`, then the decoder at the points
+        ({"rgb", "sigma"}); the density TV regulariser's probe."""
+        kw = dict(noise_mode=noise_mode, generator=generator)
+        texture_feats = self.texture_backbone.synthesis(ws, return_list=True, **kw)
+        static_feats = self.backbone.synthesis(ws, return_list=True, **kw)
+        rendering_images, full_alpha, _ = self.rasterize(
+            texture_feats, mesh_condition["uvcoords_image"],
+            self._static_feats_for_raster(static_feats))
+        rendering_stitch = self.face_backbone.synthesis(ws, cond_list=rendering_images, **kw)
+        planes = self._blend_planes(rendering_stitch, full_alpha, _to_planes(static_feats[-1]))
+        return self.renderer.run_model(planes, self.decoder, coordinates, self.rendering_kwargs)
+
+    def sample(self, coordinates: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
+               mesh_condition: Dict[str, torch.Tensor], truncation_psi: float = 1.0,
+               truncation_cutoff=None, noise_mode: str = "random",
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """`sample_mixed` from z and the pose label c (through `mapping`)."""
+        ws = self.mapping(z, c, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
+        return self.sample_mixed(coordinates, ws, mesh_condition, noise_mode=noise_mode,
+                                 generator=generator)
+
     def forward(self, z, c, mesh_condition, truncation_psi=1.0, truncation_cutoff=None,
                 evaluation: bool = False, noise_mode: str = "random", update_emas: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -284,6 +284,15 @@ class ImportanceRenderer:
                                                 white_back=white_back)
         return rgb, depth, weights.sum(dim=2)
 
+    def run_model(self, planes: torch.Tensor, decoder: Callable, coordinates: torch.Tensor,
+                  options: Dict) -> Dict[str, torch.Tensor]:
+        """Density and colour at arbitrary points: coordinates [B, M, 3] ->
+        the decoder's {"rgb", "sigma"} (exact bilinear tri-plane lookup)."""
+        if options.get("flip_z", False):
+            coordinates = coordinates * torch.tensor([1.0, 1.0, -1.0], device=coordinates.device)
+        proj = project_onto_planes((2.0 / options["box_warp"]) * coordinates.float())
+        return decoder(_sample(planes.float(), proj))
+
     def _march_fused_path(self, planes, decoder_params, ray_origins, ray_directions,
                           depths_coarse, options, res, tile, n_imp):
         """Two-kernel render: B1 in the raw layout, the tile-pooled importance

@@ -1,0 +1,185 @@
+"""3D-GAN training loop on one card, plain PyTorch.
+
+Counterpart of `invertavatar_tpu/train/loop_gan.py` (reference
+`training_avatar_texture/training_loop.py`): batches -> `make_gan_train_step`
+(one specialisation per neural rendering resolution and lazy-reg phase pair)
+-> the G EMA -> the schedules (blur fade, neural rendering resolution fade,
+conditioning-swap ramp) and the ADA probability -> ticks with `stats.jsonl`
+and snapshots. As in the JAX package, the snapshots hold the optimizers'
+moments, the EMA, the counters and the ADA probability (`torch.save`, one
+file), and a run resumes from one bit for bit: each step draws from a
+`torch.Generator` seeded by (seed, step index). One process and one card;
+data parallelism (DDP) is not ported yet (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+from ..utils.misc import resolve_device, to_device
+from ..utils.stats import Collector, StatsLogger
+from .gan import GANLossConfig, make_gan_train_step, make_schedules, neural_rendering_resolution
+from .state import LazyRegAdam, MultiSteps, TrainState, ema_beta, ema_update
+
+
+@dataclasses.dataclass
+class GANTrainConfig:
+    run_dir: str = "runs/gan"
+    total_kimg: int = 25000
+    batch_size: int = 32
+    g_lr: float = 0.0025
+    d_lr: float = 0.002
+    beta2: float = 0.99
+    ema_kimg: float = 10.0
+    ema_rampup: Optional[float] = 0.05
+    kimg_per_tick: int = 4
+    snapshot_ticks: int = 50
+    snapshot_images: bool = True  # render a grid of EMA fakes at snapshots (needs PIL)
+    seed: int = 0
+    # micro-batch gradient accumulation (`MultiSteps`): batch_iter yields
+    # micro-batches of batch_size // grad_accum, and each optimizer update
+    # averages the gradients of grad_accum of them; the EMA, the lazy-reg
+    # phases and ADA count micro-steps, as in the JAX package
+    grad_accum: int = 1
+    augment_p: float = 0.0  # the initial ADA probability
+    loss: GANLossConfig = dataclasses.field(default_factory=GANLossConfig)
+
+
+def step_generator(seed: int, step_idx: int, device) -> torch.Generator:
+    """The draws of step `step_idx`: a generator seeded by (seed, step)."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step_idx)
+
+
+def _save_fakes(G_ema, batch, path: str) -> None:
+    """A grid of the EMA generator's images of the batch's first 4 items."""
+    import PIL.Image
+
+    from ..cli.common import layout_grid, to_uint8
+
+    with torch.no_grad():
+        img = G_ema(batch["z"][:4], batch["c"][:4],
+                    {"uvcoords_image": batch["v"]["uvcoords_image"][:4]}, noise_mode="const",
+                    generator=torch.Generator(device=batch["z"].device).manual_seed(0))["image"]
+    tiles = [to_uint8(img[i:i + 1]) for i in range(img.shape[0])]
+    PIL.Image.fromarray(layout_grid(tiles, (len(tiles), 1))).save(path)
+
+
+def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
+              max_steps: Optional[int] = None, resume_path: Optional[str] = None,
+              augment_pipe=None, metric_names=(), on_step: Optional[Callable] = None,
+              device="cuda"):
+    """Train G against D on `batch_iter`'s batches ({"image" [B, 3, R, R] in
+    [-1, 1], "c" [B, 25], "v": {"uvcoords_image"}, "z" [B, z_dim]}, numpy or
+    tensors on any device; micro-batches with `grad_accum`), until
+    `total_kimg` or `max_steps` steps. Ticks every `kimg_per_tick` write
+    `stats.jsonl`; snapshots (`snapshot-<nimg>.pt` in `run_dir`) every
+    `snapshot_ticks` ticks and at `max_steps`. `resume_path` restores a
+    snapshot. `on_step(step_idx, cur_nimg, metrics)` runs after each step.
+    Runs on CUDA unless `device="cpu"` is asked for. Returns (g_state,
+    d_state, G_ema, cur_nimg)."""
+    if metric_names:
+        raise NotImplementedError("in-training metrics (FID and the rest of metrics/*) are not "
+                                  "ported yet (ROADMAP A12)")
+    device = resolve_device(device)
+    G.to(device).train()
+    D.to(device).train()
+    os.makedirs(cfg.run_dir, exist_ok=True)
+    with open(os.path.join(cfg.run_dir, "training_options.json"), "w") as f:
+        json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
+
+    lc = cfg.loss
+    g_opt = LazyRegAdam(G.parameters(), cfg.g_lr, 0.0, cfg.beta2, 1e-8, lc.g_reg_interval)
+    d_opt = LazyRegAdam(D.parameters(), cfg.d_lr, 0.0, cfg.beta2, 1e-8, lc.d_reg_interval)
+    if cfg.grad_accum > 1:
+        g_opt, d_opt = MultiSteps(g_opt, cfg.grad_accum), MultiSteps(d_opt, cfg.grad_accum)
+    g_state, d_state = TrainState(G, g_opt), TrainState(D, d_opt)
+    G_ema = copy.deepcopy(G).eval().requires_grad_(False)
+    cur_nimg = step_idx = 0
+    augment_p = float(cfg.augment_p)
+    if resume_path is not None:
+        snap = restore_checkpoint(resume_path, map_location=device)
+        g_state.load_state_dict(snap["g_state"])
+        d_state.load_state_dict(snap["d_state"])
+        G_ema.load_state_dict(snap["G_ema"])
+        cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+        augment_p = float(snap["augment_p"])
+
+    steps: Dict = {}
+
+    def get_step(nrr, do_greg, do_dreg):
+        key = (nrr, do_greg, do_dreg)
+        if key not in steps:
+            steps[key] = make_gan_train_step(G, D, lc, nrr, do_greg, do_dreg,
+                                             augment_pipe=augment_pipe)
+        return steps[key]
+
+    sign_real_acc = []
+    collector = Collector()
+    logger = StatsLogger(cfg.run_dir)
+    tick_nimg = cfg.kimg_per_tick * 1000
+    next_tick = cur_nimg + tick_nimg
+    tick_start = time.time()
+
+    while cur_nimg < cfg.total_kimg * 1000:
+        batch = to_device(next(batch_iter), device)
+        sched = make_schedules(lc, cur_nimg, augment_p=augment_p)
+        nrr = neural_rendering_resolution(lc, cur_nimg)
+        do_greg = step_idx % lc.g_reg_interval == 0 and lc.density_reg > 0
+        do_dreg = step_idx % lc.d_reg_interval == 0 and lc.r1_gamma > 0
+        step = get_step(nrr, do_greg, do_dreg)
+        gen = step_generator(cfg.seed, step_idx, device)
+        metrics = step(g_state, d_state, batch, sched, gen)
+        ema_update(G_ema.parameters(), G.parameters(),
+                   ema_beta(cfg.batch_size, cfg.ema_kimg, cur_nimg, cfg.ema_rampup))
+        cur_nimg += cfg.batch_size // cfg.grad_accum
+        step_idx += 1
+        metrics = {k: float(v) for k, v in metrics.items()}
+        for k, v in metrics.items():
+            collector.report(k, v)
+        if on_step is not None:
+            on_step(step_idx, cur_nimg, metrics)
+
+        # the ADA heuristic: move p toward the target sign of the real logits
+        if augment_pipe is not None and lc.ada_target is not None:
+            sign_real_acc.append(metrics.get("Loss/signs/real", 0.0))
+            if step_idx % lc.ada_interval == 0:
+                adjust = np.sign(np.mean(sign_real_acc) - lc.ada_target) * (
+                    cfg.batch_size * lc.ada_interval) / (lc.ada_kimg * 1000)
+                augment_p = max(augment_p + float(adjust), 0.0)
+                sign_real_acc = []
+                collector.report("Progress/augment", augment_p)
+
+        done = bool(max_steps) and step_idx >= max_steps
+        if cur_nimg >= next_tick or done:
+            collector.update()
+            dt = time.time() - tick_start
+            spk = dt / max((cur_nimg - (next_tick - tick_nimg)) / 1000, 1e-8)
+            print(f"kimg {cur_nimg / 1000:.1f}  sec/kimg {spk:.1f}  "
+                  + "  ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+            logger.write(collector, cur_nimg)
+            tick_start = time.time()
+            next_tick = cur_nimg + tick_nimg
+            if (cur_nimg // tick_nimg) % cfg.snapshot_ticks == 0 or done:
+                save_checkpoint(os.path.join(cfg.run_dir, f"snapshot-{cur_nimg:08d}.pt"), {
+                    "g_state": g_state.state_dict(), "d_state": d_state.state_dict(),
+                    "G_ema": G_ema.state_dict(), "cur_nimg": cur_nimg, "step_idx": step_idx,
+                    "augment_p": augment_p})
+                if cfg.snapshot_images:
+                    G_ema.neural_rendering_resolution = nrr
+                    for b_ema, b in zip(G_ema.buffers(), G.buffers()):
+                        b_ema.copy_(b)
+                    _save_fakes(G_ema, batch, os.path.join(cfg.run_dir,
+                                                           f"fakes{cur_nimg:08d}.png"))
+        if done:
+            break
+    logger.close()
+    return g_state, d_state, G_ema, cur_nimg

@@ -23,7 +23,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
-from ..utils.misc import resolve_device
+from ..utils.misc import resolve_device, to_device
 from ..utils.stats import Collector, StatsLogger
 from .fast_render import grad_overrides, nograd_overrides
 from .inversion import (
@@ -177,12 +177,6 @@ class InversionTrainConfig:
     weights: InversionLossWeights = dataclasses.field(default_factory=InversionLossWeights)
 
 
-def _to_device(batch, device):
-    if isinstance(batch, dict):
-        return {k: _to_device(v, device) for k, v in batch.items()}
-    return torch.as_tensor(batch).to(device)
-
-
 def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
               cfg: InversionTrainConfig, lpips_fn: Callable, id_fn: Optional[Callable] = None,
               max_steps: Optional[int] = None, resume_path: Optional[str] = None,
@@ -220,7 +214,7 @@ def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
             "cur_nimg": cur_nimg, "step_idx": step_idx})
 
     while cur_nimg < cfg.total_kimg * 1000:
-        batch = _to_device(next(batch_iter), device)
+        batch = to_device(next(batch_iter), device)
         do_reg = step_idx % cfg.wd_reg_interval == 0 and cfg.weights.w_discriminator > 0
         aux = step_fn(state, wd_state, batch, do_wd_reg=do_reg)
         cur_nimg += cfg.batch_size

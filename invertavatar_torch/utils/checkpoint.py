@@ -88,12 +88,17 @@ def _stub_children(obj) -> Dict[str, Any]:
 
 
 def _inversion_config(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    """The `InversionNet` options a state dict implies: which U-Nets it holds,
-    the texture offsets' widths and the trunk depth (24 IR-SE blocks, or 4 in
-    the tiny test trunk)."""
+    """The `InversionNet` options a state dict implies: which U-Nets it holds
+    and of which kind (the one-shot SegFormer decoders carry ViT blocks,
+    `up1.transformer.*`; the few-shot ones ConvGRUs), the texture offsets'
+    widths and the trunk depth (24 IR-SE blocks, or 4 in the tiny test
+    trunk)."""
     blocks = {k.split(".")[2] for k in state if k.startswith("encoder.body.")}
+    segformer = any(k.startswith(f"unet_encoder.{u}.up1.transformer.") for k in state
+                    for u in ("texture_unet", "triplane_unet"))
     cfg = dict(encoding_texture=any(k.startswith("unet_encoder.texture_unet.") for k in state),
                encoding_triplane=any(k.startswith("unet_encoder.triplane_unet.") for k in state),
+               unet_type="segformer" if segformer else "gru",
                trunk_layers_n=8 if len(blocks) == 4 else 50)
     if cfg["encoding_texture"]:
         cfg["texture_out_channels"] = tuple(
@@ -102,10 +107,12 @@ def _inversion_config(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def load_inversion_from_pkl(path: str, key: str = "G", device="cuda"):
-    """A reference inversion checkpoint (e.g. FSInvertAvatar.pkl) -> the
-    port's `InversionNet` in eval mode on `device` (CUDA by default). The
-    nested generator's init kwargs give its config; the U-Nets and trunk
-    depth follow the state dict (`_inversion_config`)."""
+    """A reference inversion checkpoint (the few-shot `FSInvertAvatar.pkl`, or
+    a one-shot `updatedOSInvertAvatar`-style pickle) -> the port's
+    `InversionNet` in eval mode on `device` (CUDA by default). The nested
+    generator's init kwargs give its config; the U-Nets (GRU or SegFormer)
+    and the trunk depth follow the state dict (`_inversion_config`), where
+    the JAX `cli/eval_os.py` sets `unet_type="segformer"` itself."""
     from ..models.encoders.uvnet import InversionNet
 
     device = resolve_device(device)

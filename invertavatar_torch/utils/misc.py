@@ -22,6 +22,15 @@ def parse_padding(padding) -> tuple:
     return int(px0), int(px1), int(py0), int(py1)
 
 
+def to_device(batch, device):
+    """A batch (arrays or tensors, in nested dicts) as tensors on `device`."""
+    import torch
+
+    if isinstance(batch, dict):
+        return {k: to_device(v, device) for k, v in batch.items()}
+    return torch.as_tensor(batch).to(device)
+
+
 def resolve_device(device) -> "torch.device":
     """The device an entry point builds on. CUDA is the default and must exist:
     nothing falls back to the CPU unless the caller asks for it."""

@@ -1,25 +1,35 @@
-"""Where the time of a reenactment frame, a few-shot absorb or an e4e training
-step goes on one GPU.
+"""Where the time of a reenactment frame, a few-shot absorb, a one-shot
+inversion or a training step (e4e, GAN) goes on one GPU.
 
     python -m invertavatar_torch.utils.profiling          # the 512² frame
     python -m invertavatar_torch.utils.profiling online   # ... driven by FaceVerse
     python -m invertavatar_torch.utils.profiling absorb   # encode + 2 chunks of T=4
+    python -m invertavatar_torch.utils.profiling oneshot  # one one-shot inversion
     python -m invertavatar_torch.utils.profiling e4e      # one e4e training step
+    python -m invertavatar_torch.utils.profiling gan      # one GAN step, batch 4
+    python -m invertavatar_torch.utils.profiling gan_r1   # ... with the R1 penalty
 
 `frame` builds the flagship generator with seeded random weights (as
 `chip_smoke.py` does) and precomputes the avatar once; `online` drives it
 with the synthetic FaceVerse manager at the v3 mesh size (phase 11);
 `absorb` builds `fewshot_inversion_net` and absorbs a synthetic 8-frame clip
-(phase 13); `e4e` builds the e4e network (float32 flagship generator, IR-SE-50
+(phase 13); `oneshot` builds `oneshot_inversion_net` and inverts a
+synthetic 512² frame through `cli.eval_os.invert_source` (phase 15); `gan`
+builds the flagship-width generator and dual discriminator of phase 17 and
+runs a GAN step without the lazy regularisations (as 45 of every 48 steps
+are), batch 4, or with R1 (`gan_r1`: 1 warm-up, 2 timed and 1 traced
+iteration, as it takes seconds); `e4e` builds the e4e network (float32 flagship generator, IR-SE-50
 encoder, latent discriminator) and steps `make_e4e_grad_programs` with the
 B3 fast paths on a synthetic B=1 512² batch, as `chip_smoke.py` phase 10
 does. Each times untraced iterations on the host clock, then traces
 iterations with `torch.profiler` and prints, per iteration:
-  * host ms (untraced) and device busy ms (the sum of kernel times; one
+  * host ms and the peak memory (untraced) and device busy ms (the sum of kernel times; one
     stream, so kernels do not overlap) and the device's idle share
   * for all but `e4e`, each stage (frame: the driving signal, rasterize,
-    face backbone, renderer, super-resolution; absorb: encode, the texture
-    and static backbones, the render, both U-Nets), and the rest: its window
+    face backbone, renderer, super-resolution; absorb and oneshot: encode,
+    the texture and static backbones, the render, both U-Nets; gan: the
+    generator's and the discriminator's forwards, the backward passes and
+    Adam falling in the rest), and the rest: its window
     on the device timeline, the device time busy inside it, its device ops
   * the device ops with the most device time
 and, last, one JSON line with the same numbers.
@@ -126,6 +136,64 @@ def _absorb(dev):
     return run, [t[0] for t in targets], _stage_scopes(targets)
 
 
+def _oneshot(dev):
+    """(iteration, stages, scopes) of one one-shot inversion of a synthetic
+    512² frame through `cli.eval_os.invert_source`."""
+    from ..cli.eval_os import invert_source
+    from ..faceverse.synthetic import coeff_trajectory, synthetic_manager, synthetic_source_clip
+    from ..flagship import oneshot_inversion_net
+
+    net = oneshot_inversion_net(device=dev)
+    mgr, _ = synthetic_manager(n_grid=173, device=dev)
+    src = synthetic_source_clip(mgr, torch.from_numpy(coeff_trajectory(1)).to(dev), 1, seed=15)
+    G, unets = net.generator, net.unet_encoder
+    targets = [("encode", net, "encode"),
+               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
+               ("backbone", G.backbone.synthesis, "forward"),
+               ("render", G, "synthesis_withTexture"),
+               ("texture_unet", unets.texture_unet, "forward"),
+               ("triplane_unet", unets.triplane_unet, "forward")]
+    image, uv, cam, uvc = src
+    return ((lambda: invert_source(net, image, cam, uv, uvc)), [t[0] for t in targets],
+            _stage_scopes(targets))
+
+
+def _gan(dev, r1=False):
+    """(iteration, stages, scopes) of one GAN step at flagship width, batch
+    4, nrr 64, 48+48 samples, without the lazy regularisations (with `r1`,
+    Dmain with the R1 penalty)."""
+    import numpy as np
+
+    from ..flagship import FLAGSHIP_RENDERING_KWARGS, example_inputs
+    from ..models.discriminator import DualDiscriminator
+    from ..models.triplane import TriPlaneGenerator
+    from ..train import gan
+    from ..train.state import LazyRegAdam, TrainState
+
+    rk = dict(FLAGSHIP_RENDERING_KWARGS, gpc_reg_prob=None, superresolution_noise_mode="random",
+              det_stratified=False, depth_resolution=48, depth_resolution_importance=48)
+    torch.manual_seed(17)
+    with torch.device(dev):
+        G = TriPlaneGenerator(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
+                              img_channels=3, rendering_kwargs=rk,
+                              neural_rendering_resolution=64, channel_base=32768,
+                              channel_max=512, map_num_layers=2)
+        D = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=6, channel_base=32768,
+                              channel_max=512, num_fp16_res=4)
+    g_state = TrainState(G, LazyRegAdam(G.parameters(), 0.0025, 0.0, 0.99, 1e-8, 4))
+    d_state = TrainState(D, LazyRegAdam(D.parameters(), 0.002, 0.0, 0.99, 1e-8, 16))
+    z, c, uvc = (torch.from_numpy(a).to(dev) for a in example_inputs(4))
+    img = np.random.RandomState(0).randn(4, 3, 512, 512).astype(np.float32)
+    batch = {"image": torch.from_numpy(img).to(dev), "c": c, "v": {"uvcoords_image": uvc}, "z": z}
+    cfg = gan.GANLossConfig(blur_init_sigma=10.0, blur_fade_kimg=200.0)
+    sched = gan.make_schedules(cfg, 0)
+    step = gan.make_gan_train_step(G, D, cfg, 64, do_greg=False, do_dreg=r1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    targets = [("generator", G, "synthesis"), ("discriminator", D, "forward")]
+    return ((lambda: step(g_state, d_state, batch, sched, gen)), [t[0] for t in targets],
+            _stage_scopes(targets))
+
+
 def _e4e(dev):
     """(iteration, no stages, no scopes) of the e4e training step."""
     import numpy as np
@@ -158,24 +226,27 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     paths = {"frame": _frame, "online": lambda d: _frame(d, online=True), "absorb": _absorb,
-             "e4e": _e4e}
+             "oneshot": _oneshot, "e4e": _e4e, "gan": _gan, "gan_r1": lambda d: _gan(d, True)}
     run, stage_names, scopes = paths[path](dev)
-    for _ in range(3):
+    warmup, timed, traced = (1, 2, 1) if path == "gan_r1" else (3, TIMED_FRAMES, TRACED_FRAMES)
+    for _ in range(warmup):
         run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(TIMED_FRAMES):
+    for _ in range(timed):
         run()
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+    host_ms = (time.perf_counter() - t0) / timed * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with scopes, torch.profiler.profile(activities=acts) as prof:
-        for _ in range(TRACED_FRAMES):
+        for _ in range(traced):
             run()
         torch.cuda.synchronize()
 
-    n = TRACED_FRAMES
+    n = traced
     # Device timeline: kernels, copies and fills (the ctypes-bound kernels too,
     # which no aten op encloses), and each stage's `record_function` span as
     # the profiler mirrors it onto the device (first to last kernel of it).
@@ -196,7 +267,8 @@ def main(argv=None):
     idle = max(0.0, 1 - busy_ms / host_ms)
     card = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}; path {path} (per {path} below)")
-    print(f"host ms (untraced, {TIMED_FRAMES} iterations): {host_ms:.3f}")
+    print(f"host ms (untraced, {timed} iterations): {host_ms:.3f}; peak memory "
+          f"{peak_gib:.3f} GiB (the untraced iterations)")
     print(f"device busy ms: {busy_ms:.3f}; device ops: {len(work) / n:.1f}; "
           f"idle share: {idle:.3f}")
     stages = {}
@@ -212,7 +284,8 @@ def main(argv=None):
     for e in ops:
         print(f"  {e.self_device_time_total / n / 1e3:8.3f}  {e.count / n:6.1f}  {e.key[:100]}")
     print(json.dumps({
-        "card": card, "path": path, "host_ms": host_ms, "device_busy_ms": busy_ms,
+        "card": card, "path": path, "host_ms": host_ms, "peak_gib": peak_gib,
+        "device_busy_ms": busy_ms,
         "idle_share": idle, "device_ops": len(work) / n, "stages": stages,
         "top_ops_ms": {e.key[:100]: e.self_device_time_total / n / 1e3 for e in ops},
     }))

@@ -13,11 +13,16 @@ uses the torch reference key space and layouts.
     own names; `black_uv_bg` NHWC -> NCHW
   * BatchNorm `running_mean` / `running_var` come from `batch_stats`
 
-An `InversionNet` tree converts whole by these rules: the e4e encoder, and
-the few-shot ConvGRU U-Nets (`unet_encoder.{texture,triplane}_unet`: trunk
-and decoder convs, BatchNorm statistics, PReLU slopes, the GRU gates
+An `InversionNet` tree converts whole by these rules: the e4e encoder, the
+few-shot ConvGRU U-Nets (`unet_encoder.{texture,triplane}_unet`: trunk and
+decoder convs, BatchNorm statistics, PReLU slopes, the GRU gates
 `conv_gru.ih.0` / `conv_gru.hh.0`, the `condition_*` and `final_head` heads)
-keep the JAX module names, which are the torch reference's.
+and the one-shot SegFormer decoders (`up*.transformer.*`: the patch
+embedding and 1×1 convs and the depthwise `mlp.dwconv.dwconv` HWIO -> OIHW,
+the q / kv / proj / fc linears [in, out] -> [out, in], LayerNorm scales and
+shifts as they are; `CrossAttention`'s packed `in_proj_weight` is stored in
+the torch layout already) keep the JAX module names, which are the torch
+reference's.
 
 `resample_filter` buffers are not in the trees: the port rebuilds them from
 their taps and keeps them out of the state dict.

@@ -165,6 +165,50 @@ def test_load_faceverse_assets_matches_jax(tmp_path):
                     assert np.asarray(x).dtype == np.asarray(y).dtype, f
 
 
+class _RunsShell:
+    """Pickles as a call of `os.system` (the shape of a forged model file)."""
+
+    def __init__(self, marker):
+        self.marker = marker
+
+    def __reduce__(self):
+        import os
+
+        return (os.system, (f"touch {self.marker}",))
+
+
+def test_forged_model_npy_runs_no_code(tmp_path):
+    """An object `.npy` whose dict holds a `__reduce__` to `os.system` is
+    refused and runs nothing; the same schema without it loads, with a list
+    and a numpy integer among its values, to the arrays `np.load` gives."""
+    rng = np.random.RandomState(3)
+    V = 12
+    d = {"meanshape": rng.randn(1, 3 * V).astype(np.float32),
+         "idBase": rng.randn(3 * V, 150).astype(np.float32),
+         "exBase": rng.randn(3 * V, 52).astype(np.float32),
+         "uv_per_ver": rng.rand(V, 2), "tri": rng.randint(0, V, (20, 3)),
+         "ver_inds": [0, 4, np.int64(8)], "n": np.int32(3)}
+    marker = tmp_path / "ran"
+    for key in ("evil", "tri"):
+        forged = dict(d, **{key: _RunsShell(marker)})
+        path = tmp_path / f"forged_{key}.npy"
+        np.save(path, forged, allow_pickle=True)
+        with pytest.raises(Exception):
+            pm.load_faceverse_assets(str(path))
+        assert not marker.exists()
+    path = tmp_path / "plain.npy"
+    np.save(path, d, allow_pickle=True)
+    got = pm.load_model_dict(str(path))
+    ref = np.load(path, allow_pickle=True).item()
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(ref[k]), err_msg=k)
+    assert pm.load_faceverse_assets(str(path)).ver_inds == (0, 4, 8)
+    np.save(tmp_path / "array.npy", d["meanshape"])
+    with pytest.raises(ValueError):
+        pm.load_model_dict(str(tmp_path / "array.npy"))
+
+
 def _compare_driving(got, ref):
     got, ref = got.cpu().numpy(), np.asarray(ref)
     assert got.shape == ref.shape == (1, 256, 256, 3)

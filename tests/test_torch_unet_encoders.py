@@ -32,7 +32,7 @@ CB, CM = 1024, 64  # a tiny generator's channel scheme
 
 def _nchw(x):
     """[..., H, W, C] numpy/JAX -> [..., C, H, W] torch."""
-    x = np.asarray(x, np.float32)
+    x = np.array(x, np.float32)  # a writable copy (JAX arrays read as read-only)
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))
 
 
