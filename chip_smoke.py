@@ -72,6 +72,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      then 3 warm steps with both; ms/step and the peak memory; losses,
      parameters and the EMA finite; no B1/B2 launch (training renders are
      not evaluation renders)
+ 18. a small one-shot training step (the tests' tiny widths rendering 256²,
+     full-width SegFormer U-Nets, a dual discriminator at 256² with adv on):
+     Ireal, Dreal with R1, Igen and Dgen, each from the same weights, under
+     `fast_igen_target="exact"` with the student render on B3 and its
+     transpose (`fast_grad="pallas"`) on the card, against the same phases
+     through `F.grid_sample` (`"structured"`) on the card and against the
+     CPU; losses and the trained network's gradients
+ 19. one-shot training at flagship width through `train_oneshot`: the
+     float32 flagship generator (48+48 samples) and IR-SE-50 e4e encoder,
+     frozen, two float32 SegFormer U-Nets, the dual discriminator at 512²,
+     batch 2, 512², 8 steps (0-3 cover the schedule, R1 at step 0; 4-7
+     timed); per phase ms and B3 / transpose launches against the counts
+     from the code, the peak memory; only the scheduled U-Net moves in each
+     step, D moves, the generator and the encoder never do
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -104,6 +118,9 @@ N_ABSORB_REPS = 3  # timed absorbs of 2 chunks (phase 13)
 N_ONESHOT_SMALL = 5  # driven frames of the small one-shot avatar, card vs CPU (phase 14)
 N_ONESHOT_REPS = 3  # timed one-shot inversions (phase 15)
 GAN_BATCH = 4  # the reference's per-GPU batch (32 over 8 GPUs)
+ONESHOT_BATCH = 2  # the reference's one-shot per-GPU batch (16 over 8 GPUs)
+N_ONESHOT_TRAIN = 8  # flagship one-shot steps (phase 19): 0-3 cover the schedule, R1 at 0
+N_ONESHOT_TIMED_FROM = 4  # steps 4-7 are the timed ones
 N_GAN_STEPS = 6  # flagship GAN steps (phase 17): step 0 runs both regularisations,
 # step 4 the density TV, the others neither
 N_GAN_REG_TIMED = 3  # warm steps with both regularisations, timed after the run
@@ -1058,6 +1075,263 @@ def gan_phases(torch, dev, card):
     del G, D, g_state, d_state, G_ema, batches
 
 
+@contextlib.contextmanager
+def timed_oneshot_phases(torch, li, ps, phases):
+    """Time each phase of `make_oneshot_train_step`'s steps (host clock,
+    synchronized) and count its B3 / transpose launches: appends (phase,
+    do_r1, ms, B3 launches, transpose launches) to `phases`."""
+    orig = li.make_oneshot_train_step
+
+    def make(*args, **kwargs):
+        step = orig(*args, **kwargs)
+
+        def timed(state, d_state, batch, phase="Ireal", do_r1=False, generator=None):
+            torch.cuda.synchronize()
+            n0 = (ps.sample_planes_windowed.launches, ps.windowed_sample_transpose.launches)
+            t0 = time.perf_counter()
+            aux = step(state, d_state, batch, phase=phase, do_r1=do_r1, generator=generator)
+            torch.cuda.synchronize()
+            phases.append((phase, do_r1, (time.perf_counter() - t0) * 1e3,
+                           ps.sample_planes_windowed.launches - n0[0],
+                           ps.windowed_sample_transpose.launches - n0[1]))
+            return aux
+        return timed
+
+    li.make_oneshot_train_step = make
+    try:
+        yield
+    finally:
+        li.make_oneshot_train_step = orig
+
+
+def oneshot_train_phases(torch, dev, card):
+    """Phases 18-19: the one-shot training step, small, on the card against
+    the `F.grid_sample` route and the CPU; then `train_oneshot` at flagship
+    width. Returns the B3 / transpose launches of phase 19."""
+    import tempfile
+
+    import numpy as np
+
+    from invertavatar_torch.flagship import oneshot_train_batch, oneshot_train_models
+    from invertavatar_torch.ops import plane_sample as ps
+    from invertavatar_torch.ops.resize import resize_bilinear
+    from invertavatar_torch.train import loop_inversion as li
+    from invertavatar_torch.train.fast_render import grad_overrides, nograd_overrides
+    from invertavatar_torch.train.inversion import InversionLossWeights, oneshot_d_loss
+    from invertavatar_torch.train.state import TrainState
+
+    # the JAX package's one-shot step weights (tests/test_loop_inversion.py:632)
+    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, raw_l1=1.0, tri=0.001,
+                                   texture=0.001, adv=0.01)
+
+    def l1(a, b):
+        return (a - b).abs().mean()
+
+    # ---------------------------------------------------------------- phase 18
+    # the tests' tiny one-shot widths (channel_base 1024, channel_max 64, 32²
+    # neural render, 6+6 samples, tiny e4e trunk, full-width SegFormer
+    # U-Nets), rendering 256² through the 4X SR so that frames, renders and
+    # D share one resolution (Dreal scores the frames)
+    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=256, img_channels=3,
+                 rendering_kwargs={"superresolution_module": "x.SuperresolutionHybrid4X",
+                                   "c_gen_conditioning_zero": False, "c_scale": 1.0,
+                                   "superresolution_noise_mode": "none", "decoder_lr_mul": 1.0,
+                                   "sr_antialias": True, "depth_resolution": 6,
+                                   "depth_resolution_importance": 6, "box_warp": 1.0,
+                                   "det_stratified": True},
+                 neural_rendering_resolution=32, channel_base=1024, channel_max=64,
+                 map_num_layers=2)
+    d_cfg = dict(c_dim=25, img_resolution=256, img_channels=6, channel_base=1024,
+                 channel_max=64, num_fp16_res=0)
+    t0 = time.perf_counter()
+    net_cpu, d_cpu = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=18, device="cpu")
+    sd0 = {k: v.clone() for k, v in net_cpu.state_dict().items()}
+    dsd0 = {k: v.clone() for k, v in d_cpu.state_dict().items()}
+    net_gpu, d_gpu = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=18, device=dev)
+    schedule = [("Ireal", "tri", False), ("Dreal", "tri", True), ("Igen", "tex", False),
+                ("Dgen", "tex", False)]
+    results = {}
+    for label, n, D, d, fast_grad in (("card B3", net_gpu, d_gpu, dev, "pallas"),
+                                      ("card grid_sample", net_gpu, d_gpu, dev, "structured"),
+                                      ("CPU", net_cpu, d_cpu, torch.device("cpu"), "pallas")):
+        batch = oneshot_train_batch(1, 256, z_dim=32, seed=18, device=d)
+        step = li.make_oneshot_train_step(n, l1, None, weights, fast_igen_target="exact",
+                                          fast_grad=fast_grad)
+        n0 = (ps.sample_planes_windowed.launches, ps.windowed_sample_transpose.launches)
+        out = {}
+        for phase, unet, r1 in schedule:  # each phase from the same weights
+            n.load_state_dict(sd0)
+            D.load_state_dict(dsd0)
+            pred = li.oneshot_tex_trainable if unet == "tex" else li.oneshot_tri_trainable
+            state = TrainState(n, li.masked_adam(n, 1e-4, pred))
+            d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
+            aux = step(state, d_state, batch, phase=phase, do_r1=r1)
+            trained = n if phase.startswith("I") else D
+            grads = {k: p.grad.detach().float().cpu() for k, p in trained.named_parameters()
+                     if p.grad is not None and p.requires_grad}
+            out[phase] = ({k: float(v) for k, v in aux.items()}, grads)
+        results[label] = out
+        print(f"[18] {label}: B3 / transpose launches over the four phases "
+              f"{ps.sample_planes_windowed.launches - n0[0]} / "
+              f"{ps.windowed_sample_transpose.launches - n0[1]}")
+    # The D phases' conditioning, on the CPU alone: Dreal's D gradient (R1
+    # on) against the same with the fake pair moved by N(0, 1e-6), float32
+    # rounding's size. The tiny random generator's inversion render is nearly
+    # flat, so whole channels of D's pre-activations sit together near a
+    # leaky-ReLU kink, and its gradient moves by far more than its inputs.
+    net_cpu.load_state_dict(sd0)
+    d_cpu.load_state_dict(dsd0)
+    d_cpu.requires_grad_(True)
+    batch = oneshot_train_batch(1, 256, z_dim=32, seed=18, device="cpu")
+    with torch.no_grad():
+        i_out = net_cpu({"image": batch["image"], "uv": batch["uv"]}, batch["c"], batch["v"],
+                        nograd_render=nograd_overrides("exact"),
+                        grad_render=grad_overrides("pallas"))
+    fake = {"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]}
+    real = {"image": batch["image"],
+            "image_raw": resize_bilinear(batch["image"], (128, 128), antialias=True)}
+    gen = torch.Generator().manual_seed(18)
+    d_grads = []
+    for eps in (0.0, 1e-6):
+        d_cpu.zero_grad(set_to_none=True)
+        moved = {k: v + eps * torch.randn(v.shape, generator=gen) for k, v in fake.items()}
+        oneshot_d_loss(d_cpu, moved, real, batch["c"], weights, True)[0].backward()
+        d_grads.append(torch.cat([p.grad.flatten() for p in d_cpu.parameters()]))
+    d_sens = ((d_grads[1] - d_grads[0]).norm() / d_grads[0].norm()).item()
+    print(f"[18] conditioning on the CPU: N(0, 1e-6) on Dreal's fake pair moves D's gradient by "
+          f"{d_sens:.3e} of its norm")
+    del net_cpu, net_gpu, d_cpu, d_gpu, d_grads, i_out
+
+    def compare(label, got, ref):
+        """Float32 on every side, TF32 off: the losses to 1e-3 relative
+        (+1e-7), phase 9's bar; the U-Net's gradient (I phases) to 1e-3 of
+        its norm. D's gradient (D phases) to 1e-2 of its norm: its
+        conditioning, printed above, lets float32 noise in the fake pair move
+        it by ~1e-3. No per-entry bar: a pre-activation within noise of a
+        kink flips its slope, so the largest entry differences are printed."""
+        for phase, _, _ in schedule:
+            (aux, grads), (aux_r, grads_r) = got[phase], ref[phase]
+            bad = [k for k in aux_r if not (np.isfinite(aux[k]) and
+                                           abs(aux[k] - aux_r[k]) <= 1e-3 * abs(aux_r[k]) + 1e-7)]
+            norm = sum(g.square().sum() for g in grads_r.values()).sqrt().item()
+            rel = sum((grads[k] - grads_r[k]).square().sum()
+                      for k in grads_r).sqrt().item() / norm
+            scale = max(g.abs().max().item() for g in grads_r.values())
+            diffs = {k: (grads[k] - grads_r[k]).abs().max().item() / scale for k in grads_r}
+            print(f"[18] {label}, {phase}: " + " ".join(
+                f"{k}={aux[k]:.7g}/{aux_r[k]:.7g}" for k in sorted(aux_r)) +
+                f"; {len(grads_r)} gradients, |d| {rel:.3e} of their norm {norm:.3e} "
+                f"(< {'1e-3' if phase.startswith('I') else '1e-2'}); "
+                f"largest entry differences, of the largest entry {scale:.3e}: " + ", ".join(
+                    f"{k} {diffs[k]:.3e}" for k in sorted(diffs, key=diffs.get)[-3:]))
+            if sorted(aux) != sorted(aux_r) or bad or sorted(grads) != sorted(grads_r) \
+                    or not rel < (1e-3 if phase.startswith("I") else 1e-2):
+                fail(f"the small one-shot step, {label}, disagrees in {phase}: {bad}")
+
+    compare("card B3 vs CPU", results["card B3"], results["CPU"])
+    compare("card grid_sample vs CPU", results["card grid_sample"], results["CPU"])
+    compare("card B3 vs card grid_sample", results["card B3"], results["card grid_sample"])
+    print(f"[18] small one-shot step checked in {time.perf_counter() - t0:.1f} s")
+    del results
+
+    # ---------------------------------------------------------------- phase 19
+    t0 = time.perf_counter()
+    # the float32 generator with the reference's 48+48 training samples
+    net, D = oneshot_train_models(seed=19, device=dev)
+    batches = [oneshot_train_batch(ONESHOT_BATCH, 512, seed=190 + i, device=dev)
+               for i in range(N_ONESHOT_TRAIN)]
+    unets = {"tex": net.unet_encoder.texture_unet, "tri": net.unet_encoder.triplane_unet}
+    frozen = {"generator": net.generator, "encoder": net.encoder}
+    frozen0 = {k: [p.detach().clone() for p in m.parameters()] for k, m in frozen.items()}
+    torch.cuda.synchronize()
+    print(f"[19] one-shot training models built: U-Nets "
+          f"{sum(p.numel() for p in net.unet_encoder.parameters()) / 1e6:.1f} M, generator "
+          f"{sum(p.numel() for p in net.generator.parameters()) / 1e6:.1f} M, encoder "
+          f"{sum(p.numel() for p in net.encoder.parameters()) / 1e6:.1f} M, D "
+          f"{sum(p.numel() for p in D.parameters()) / 1e6:.1f} M parameters (float32 "
+          f"generator, 48+48 samples; D at 512², bf16 top 4 resolutions) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    snap = {"unets": {k: [p.detach().clone() for p in m.parameters()] for k, m in unets.items()},
+            "D": [p.detach().clone() for p in D.parameters()]}
+    moved, phases, aux_all = [], [], []
+
+    def changed(old, module):
+        return any(not torch.equal(a, p) for a, p in zip(old, module.parameters()))
+
+    def on_step(step_idx, cur_nimg, aux):
+        torch.cuda.synchronize()
+        moved.append({**{k: changed(snap["unets"][k], m) for k, m in unets.items()},
+                      "D": changed(snap["D"], D)})
+        snap["unets"] = {k: [p.detach().clone() for p in m.parameters()]
+                         for k, m in unets.items()}
+        snap["D"] = [p.detach().clone() for p in D.parameters()]
+        aux_all.append({k: float(v) for k, v in aux.items()})
+
+    ps.sample_planes_windowed.launches = ps.windowed_sample_transpose.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as run_dir, \
+            timed_oneshot_phases(torch, li, ps, phases):
+        cfg = li.InversionTrainConfig(run_dir=run_dir, batch_size=ONESHOT_BATCH, lr=1e-4,
+                                      weights=weights)
+        li.train_oneshot(net, D, iter(batches), cfg, l1, max_steps=N_ONESHOT_TRAIN,
+                         fast_igen_target="exact", fast_grad="pallas", on_step=on_step,
+                         device=dev)
+        snap_bytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in os.listdir(run_dir)
+                         if f.startswith("snapshot-"))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t1
+    launches = {"plane_sample": ps.sample_planes_windowed.launches,
+                "plane_sample_transpose": ps.windowed_sample_transpose.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # expected launches of each phase, counted from the code: B3 twice per
+    # render (coarse, fine) for the Igen target, the e4e prefix render and the
+    # student render; the transpose twice in the student's backward; the D
+    # phases re-run the target (Dgen), the prefix and the student without grad
+    per_phase = {"Ireal": (4, 2), "Igen": (6, 2), "Dreal": (4, 0), "Dgen": (6, 0)}
+    sched = [li.oneshot_phase_schedule(i, cfg.wd_reg_interval) for i in range(N_ONESHOT_TRAIN)]
+    expect_phases = [x for i_ph, _, d_ph, r1 in sched for x in ((i_ph, False), (d_ph, r1))]
+    if [(p[0], p[1]) for p in phases] != expect_phases:
+        fail(f"train_oneshot ran the phases {[(p[0], p[1]) for p in phases]}, expected "
+             f"{expect_phases}")
+    for i, (i_ph, unet, d_ph, r1) in enumerate(sched):
+        (_, _, i_ms, i_b3, i_t), (_, _, d_ms, d_b3, d_t) = phases[2 * i], phases[2 * i + 1]
+        print(f"[19] step {i}: {i_ph} ({unet} U-Net) {i_ms:.3f} ms + {d_ph}{'+R1' if r1 else ''} "
+              f"{d_ms:.3f} ms (host clock, synchronized); B3 / transpose launches {i_b3}/{i_t} + "
+              f"{d_b3}/{d_t}; moved {moved[i]}; " +
+              " ".join(f"{k}={v:.6g}" for k, v in aux_all[i].items()))
+        if (i_b3, i_t) != per_phase[i_ph] or (d_b3, d_t) != per_phase[d_ph]:
+            fail(f"step {i}: B3 / transpose launches {i_b3}/{i_t} + {d_b3}/{d_t}, expected "
+                 f"{per_phase[i_ph]} + {per_phase[d_ph]}")
+        other = "tex" if unet == "tri" else "tri"
+        if not (moved[i][unet] and not moved[i][other] and moved[i]["D"]):
+            fail(f"step {i} trains the {unet} U-Net and D: moved {moved[i]}")
+        if not all(np.isfinite(v) for v in aux_all[i].values()):
+            fail(f"step {i} gave a non-finite loss: {aux_all[i]}")
+    for k, m in frozen.items():
+        if changed(frozen0[k], m):
+            fail(f"the frozen {k} moved")
+    timed = phases[2 * N_ONESHOT_TIMED_FROM:]
+    by_kind = {}
+    for ph, r1, ms, _, _ in timed:
+        by_kind.setdefault(ph + ("+R1" if r1 else ""), []).append(ms)
+    step_ms = [timed[2 * i][2] + timed[2 * i + 1][2] for i in range(len(timed) // 2)]
+    expect = {"plane_sample": sum(per_phase[p][0] for p, _ in expect_phases),
+              "plane_sample_transpose": sum(per_phase[p][1] for p, _ in expect_phases)}
+    print(f"[19] one-shot training at flagship width, batch {ONESHOT_BATCH}, 512²: "
+          f"{N_ONESHOT_TRAIN} steps of `train_oneshot` (exact / pallas) in {total_s:.1f} s "
+          f"with the final snapshot ({snap_bytes / 2 ** 30:.2f} GiB); steps "
+          f"{N_ONESHOT_TIMED_FROM}-{N_ONESHOT_TRAIN - 1}: {np.mean(step_ms):.3f} ms/step "
+          f"({', '.join(f'{x:.3f}' for x in step_ms)}); per phase " +
+          ", ".join(f"{k} {np.mean(v):.3f} ms" for k, v in by_kind.items()) +
+          f" (host clock, synchronized); peak memory {peak:.3f} GiB on {card}; launches "
+          f"{launches}, expected {expect}")
+    if launches != expect:
+        fail(f"B3 launches {launches} in {N_ONESHOT_TRAIN} one-shot steps, expected {expect}")
+    del net, D, batches, snap, frozen0
+    return launches
+
+
 def main(argv=None):
     import argparse
 
@@ -1215,6 +1489,13 @@ def main(argv=None):
     gan_phases(torch, dev, card)
     gan_launches = {"fused_render": fr.fused_render.launches,
                     "fused_merged_march": fr.fused_merged_march.launches}
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phases 18-19
+    fr.fused_render.launches = fr.fused_merged_march.launches = 0
+    os_train_launches = oneshot_train_phases(torch, dev, card)
+    os_train_launches.update(fused_render=fr.fused_render.launches,
+                             fused_merged_march=fr.fused_merged_march.launches)
     for k in kernels:
         if k["name"] in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
@@ -1223,8 +1504,12 @@ def main(argv=None):
                                      "fewshot_drive": drive_launches[k["name"]],
                                      "oneshot_invert": invert_launches[k["name"]],
                                      "oneshot_drive": os_drive_launches[k["name"]],
-                                     "gan_train": gan_launches[k["name"]]}
-    print(f"[18] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
+                                     "gan_train": gan_launches[k["name"]],
+                                     "oneshot_train": os_train_launches[k["name"]]}
+        else:
+            k["launches_by_path"] = {"e4e_train": k["launches"],
+                                     "oneshot_train": os_train_launches[k["name"]]}
+    print(f"[end] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

@@ -161,3 +161,50 @@ def init_flagship(G: TriPlaneGenerator, seed: int = 0) -> TriPlaneGenerator:
         else:
             t.zero_()
     return G
+
+
+def oneshot_train_models(generator_cfg=None, d_cfg=None, trunk_layers_n: int = 50,
+                         seed: int = 0, device="cuda"):
+    """The one-shot training stage's networks on `device` (CUDA by default):
+    `oneshot_inversion_net` over the float32 flagship generator with the
+    reference's 48+48 training samples (unless `generator_cfg` is given),
+    and a `DualDiscriminator` (`d_cfg`; default: at the generator's
+    resolution, 6 channels, the flagship widths with bf16 top four
+    resolutions) with torch's initialisation after `torch.manual_seed(seed)`
+    and seeded N(0, 0.1) draws added to its 1-D parameters: with zero biases
+    and the stage's zero cameras, its camera map and every logit are 0.
+    Returns (net, D)."""
+    from .models.discriminator import DualDiscriminator
+
+    if generator_cfg is None:
+        generator_cfg = flagship_config(num_fp16_res=0, sr_num_fp16_res=0)
+        generator_cfg["rendering_kwargs"].update(depth_resolution=48,
+                                                 depth_resolution_importance=48)
+    net = oneshot_inversion_net(generator_cfg, trunk_layers_n=trunk_layers_n, seed=seed,
+                                device=device)
+    d_cfg = d_cfg or dict(c_dim=generator_cfg["c_dim"],
+                          img_resolution=generator_cfg["img_resolution"], img_channels=6)
+    torch.manual_seed(seed)
+    D = DualDiscriminator(**d_cfg)
+    npr = np.random.RandomState(seed)
+    with torch.no_grad():
+        for p in D.parameters():
+            if p.ndim == 1:
+                p.add_(torch.from_numpy((npr.standard_normal(p.shape) * 0.1).astype(np.float32)))
+    return net, D.to(resolve_device(device))
+
+
+def oneshot_train_batch(batch: int, res: int, z_dim: int = 512, seed: int = 0, device="cuda"):
+    """A seeded one-shot training batch on `device`: frames [B, 3, res, res]
+    uniform in [-1, 1], the UV input [B, 6, 256, 256] (a seeded UV texture
+    beside `example_inputs`' UV vertex image, as `gen_uv` too), the frontal
+    camera, its uvcoords and z [B, z_dim]."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    z, c, uvc = example_inputs(batch, seed=seed)
+    uv = np.concatenate([rng.uniform(-1, 1, (batch, 256, 256, 3)), uvc], axis=-1)
+    uv = torch.from_numpy(np.ascontiguousarray(uv.transpose(0, 3, 1, 2), np.float32)).to(device)
+    img = rng.uniform(-1, 1, (batch, 3, res, res)).astype(np.float32)
+    return {"image": torch.from_numpy(img).to(device), "c": torch.from_numpy(c).to(device),
+            "v": {"uvcoords_image": torch.from_numpy(uvc).to(device)}, "uv": uv, "gen_uv": uv,
+            "z": torch.from_numpy(z[:, :z_dim]).to(device)}

@@ -14,8 +14,10 @@ few-shot path of `cli/eval_seq.py`).
 
 Unlike the JAX package, whose modules make no variables until they run, the
 port builds the U-Nets only when `encoding_texture` / `encoding_triplane` ask
-for them (the e4e stage holds none). Not ported yet: the training rollouts
-`run_seq` and `run_seq_multiT` (ROADMAP A11).
+for them (the e4e stage holds none). The one-shot training step
+(`train/loop_inversion.py`) drives `prefix` and `forward` with its render
+overrides. Not ported yet: the few-shot training rollouts `run_seq` and
+`run_seq_multiT` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -126,36 +128,56 @@ class InversionNet(nn.Module):
 
     @torch.no_grad()
     def prefix(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
-               evaluation: bool = False) -> Dict[str, Any]:
+               e4e_results: Optional[Dict] = None, evaluation: bool = False,
+               nograd_render: Optional[Dict] = None,
+               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """The gradient-free prefix of `forward`: the e4e W+ codes, the
         texture pyramid, and the e4e render aligned to the input frames.
 
-        x {"image": [B, 3, H, W]}; cam [B, 25]; v {"uvcoords_image"}.
+        x {"image": [B, 3, H, W]}; cam [B, 25]; v {"uvcoords_image"};
+        `e4e_results` {"w", "texture", "static"} skips the encoding and the
+        backbones. `nograd_render` (a `train/fast_render` override dict)
+        makes the render an evaluation render with those overrides;
+        `generator` feeds the renderer's stochastic strata.
         Returns {"w", "texture", "e4e_image"}."""
         G = self.generator
-        ws = self.encode(x["image"][:, :3])
-        tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
-        static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
-        e4e_image = G.synthesis_withTexture(ws, tex, cam, v, static_feats=static,
-                                           noise_mode="const", evaluation=evaluation)["image"]
+        if e4e_results is None:
+            ws = self.encode(x["image"][:, :3])
+            tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+            static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
+        else:
+            ws, tex, static = e4e_results["w"], e4e_results["texture"], e4e_results["static"]
+        e4e_image = G.synthesis_withTexture(
+            ws, tex, cam, v, static_feats=static, noise_mode="const",
+            evaluation=evaluation or nograd_render is not None,
+            rendering_overrides=nograd_render, generator=generator)["image"]
         if e4e_image.shape[2] != x["image"].shape[2]:
             # shrunken test generators render at another size than the frames
             e4e_image = resize_bilinear(e4e_image, tuple(x["image"].shape[2:]), antialias=True)
         return {"w": ws, "texture": tex, "e4e_image": e4e_image}
 
     def forward(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
-                return_feats: bool = False, evaluation: bool = False):
+                e4e_results: Optional[Dict] = None, return_feats: bool = False,
+                evaluation: bool = False, nograd_render: Optional[Dict] = None,
+                grad_render: Optional[Dict] = None, prefix_results: Optional[Dict] = None,
+                generator: Optional[torch.Generator] = None):
         """Invert one frame per item: x {"image": [B, 3, H, W], "uv": [B, 6,
         256, 256]}, cam [B, 25], v {"uvcoords_image": [B, 256, 256, 3]}.
 
-        The prefix (`prefix`) carries no gradient; the U-Nets refine the
-        texture pyramid and condition the static backbone, and the refined
-        avatar is rendered. Returns the render's dict with "w" and
-        "e4e_image", and with `return_feats` the refined "texture" and
-        "static" feature lists."""
+        The prefix (`prefix`, given `e4e_results` and `nograd_render`)
+        carries no gradient; `prefix_results` (a `prefix` output) skips it.
+        The U-Nets refine the texture pyramid and condition the static
+        backbone, and the refined avatar is rendered with the overrides
+        `grad_render` (the training step's student render). Returns the
+        render's dict with "w" and "e4e_image", and with `return_feats` the
+        refined "texture" and "static" feature lists."""
         G = self.generator
-        pre = self.prefix(x, cam, v, evaluation=evaluation)
-        ws, tex, e4e_image = pre["w"], pre["texture"], pre["e4e_image"]
+        if prefix_results is None:
+            prefix_results = self.prefix(x, cam, v, e4e_results=e4e_results,
+                                         evaluation=evaluation, nograd_render=nograd_render,
+                                         generator=generator)
+        ws, tex = prefix_results["w"], prefix_results["texture"]
+        e4e_image = prefix_results["e4e_image"]
         delta_x = e4e_image - x["image"][:, :3]
         uv_input = self.get_unet_uvinput(x["uv"], delta_x)
         tri_input = torch.cat([x["image"][:, :3], delta_x], dim=1)
@@ -169,7 +191,8 @@ class InversionNet(nn.Module):
         static_feats = G.backbone.synthesis(ws, return_list=True, feat_conditions=sft,
                                             noise_mode="const")
         out = G.synthesis_withTexture(ws, texture_feats, cam, v, static_feats=static_feats,
-                                      noise_mode="const", evaluation=evaluation)
+                                      noise_mode="const", evaluation=evaluation,
+                                      rendering_overrides=grad_render, generator=generator)
         if return_feats:
             out["texture"] = texture_feats
             out["static"] = static_feats

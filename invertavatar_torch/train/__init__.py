@@ -1,1 +1,2 @@
-"""Training: the e4e inversion stage (losses, optimizer, step, driver)."""
+"""Training: the 3D GAN and the inversion stages (e4e, one-shot): losses,
+optimizers, steps and drivers."""

@@ -1,8 +1,10 @@
-"""Inversion-encoder training losses, e4e stage (NCHW images).
+"""Inversion-encoder training losses, e4e and one-shot stages (NCHW images).
 
-Counterpart of the e4e section of `invertavatar_tpu/train/inversion.py`:
-phases Ireal / Igen / Ireal_novel on the W+ encoder against the frozen
-generator, and the latent discriminator's loss with R1 on w. Each phase is a
+Counterpart of the e4e and one-shot sections of
+`invertavatar_tpu/train/inversion.py`: phases Ireal / Igen / Ireal_novel on
+the W+ encoder against the frozen generator, and the latent discriminator's
+loss with R1 on w; the one-shot U-Net stage's Ireal / Igen phases and its
+dual discriminator's loss with R1 on both images. Each phase is a
 function of callables, so tests can drive it with mocks. Where JAX wraps a
 target in `stop_gradient`, the port computes it under `torch.no_grad()`.
 """
@@ -139,4 +141,110 @@ def wd_losses(wd_apply: Callable, ws_fake: torch.Tensor, ws_real: torch.Tensor,
         r1 = torch.mean(torch.sum(torch.square(grads), dim=1))
         total = total + weights.wd_r1_gamma / 2 * r1
         aux["wd_r1"] = r1
+    return total, aux
+
+
+# ---------------------------------------------------------------- one-shot stage
+
+
+def _adv_term(d_apply, i_out, c):
+    """softplus(−D(fake)) of the inverter's render pair, the camera zeroed."""
+    logits = d_apply({"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]},
+                     torch.zeros_like(c))
+    return torch.mean(F.softplus(-logits))
+
+
+def oneshot_igen_loss(inv_forward: Callable, gen_mapping: Callable,
+                      gen_synthesis_featmap: Callable, d_apply: Optional[Callable],
+                      lpips: Callable, id_fn: Optional[Callable],
+                      weights: InversionLossWeights, z, c, v, gen_uv):
+    """Igen of the one-shot U-Net stage: invert a frozen-generator sample with
+    exact feature supervision (+ the adversarial term when `adv > 0`).
+
+    `inv_forward(x, c, v, return_feats)` is the inverter;
+    `gen_synthesis_featmap(ws, c, v)` the target render, whose dict carries
+    "image", "feature_image", "triplane" and (for `texture > 0`) "texture"."""
+    with torch.no_grad():
+        ws = gen_mapping(z, c, truncation_psi=0.8)
+        gen_out = gen_synthesis_featmap(ws, c, v)
+    i_out = inv_forward({"image": gen_out["image"], "uv": gen_uv}, c, v, weights.texture > 0)
+
+    losses = {}
+    if weights.adv > 0 and d_apply is not None:
+        losses["adv"] = _adv_term(d_apply, i_out, c)
+    gen256, i256 = _to256(gen_out["image"][:, :3]), _to256(i_out["image"])
+    if weights.l1 > 0:
+        losses["l1"] = torch.mean(torch.abs(gen256 - i256))
+    if weights.lpips > 0:
+        losses["lpips"] = lpips(gen256, i256)
+    if weights.raw_l1 > 0:
+        losses["raw_l1"] = torch.mean(torch.abs(gen_out["feature_image"] - i_out["feature_image"]))
+    if weights.tri > 0:
+        losses["tri"] = torch.mean(torch.abs(gen_out["triplane"] - i_out["triplane"]))
+    if weights.texture > 0:
+        losses["texture"] = sum(torch.mean(torch.abs(g - i))
+                                for g, i in zip(gen_out["texture"], i_out["texture"]))
+    if weights.lr_lpips > 0:
+        losses["lr_lpips"] = lpips(gen_out["feature_image"][:, :3], i_out["feature_image"][:, :3])
+    if weights.id > 0 and id_fn is not None:
+        losses["id"] = id_fn(gen256, i256)
+    return _total(weights, losses), losses
+
+
+def oneshot_ireal_loss(inv_forward: Callable, d_apply: Optional[Callable], lpips: Callable,
+                       id_fn: Optional[Callable], weights: InversionLossWeights,
+                       real_img, real_c, real_v):
+    """Ireal: invert a real frame, real_img {"image": [B, 3(+mask), H, W],
+    "uv"}. With a mask channel the fake is composited onto the real
+    background. The raw supervision works at the generator's neural render
+    resolution. As the JAX package does, the ID term embeds the composite at
+    its own resolution (not the 256² resize the other terms use): at 512²,
+    `extract_feats` crops it with 256² indices."""
+    i_out = inv_forward(real_img, real_c, real_v, False)
+    image = real_img["image"]
+    nrr = i_out["feature_image"].shape[2]
+    real_raw = resize_bilinear(image[:, :3], (nrr, nrr), antialias=True)
+
+    losses = {}
+    if weights.adv > 0 and d_apply is not None:
+        losses["adv"] = _adv_term(d_apply, i_out, real_c)
+    fake = i_out["image"]
+    if image.shape[1] > 3:
+        mask = image[:, -1:]
+        fake = fake * mask + image[:, :3] * (1.0 - mask)
+    fake256, real256 = _to256(fake), _to256(image[:, :3])
+    if weights.l1 > 0:
+        losses["l1"] = torch.mean(torch.abs(real256 - fake256))
+    if weights.lpips > 0:
+        losses["lpips"] = lpips(real256, fake256)
+    if weights.raw_l1 > 0:
+        losses["raw_l1"] = torch.mean(torch.abs(real_raw - i_out["feature_image"][:, :3]))
+    if weights.lr_lpips > 0:
+        losses["lr_lpips"] = lpips(real_raw, i_out["feature_image"][:, :3])
+    if weights.id > 0 and id_fn is not None:
+        losses["id"] = id_fn(real256, fake)
+    return _total(weights, losses), losses
+
+
+def oneshot_d_loss(d_apply: Callable, fake_img, real_img, c, weights: InversionLossWeights,
+                   do_r1: bool):
+    """Dgen / Dreal (+ R1): the dual discriminator's softplus loss on the
+    inverter's pair `fake_img` {"image", "image_raw"} (no gradient) and
+    `real_img`; R1 is the mean squared norm of d(Σ scores) over both images
+    of the real pair, by double backward, weighted `adv_r1_gamma / 2`."""
+    c0 = torch.zeros_like(c)
+    loss_dgen = torch.mean(F.softplus(d_apply(fake_img, c0)))
+    if do_r1:
+        real_img = {k: real_img[k].detach().requires_grad_(True) for k in ("image", "image_raw")}
+    real_logits = d_apply(real_img, c0)
+    loss_dreal = torch.mean(F.softplus(-real_logits))
+    total = loss_dgen + loss_dreal
+    aux = {"d_gen": loss_dgen, "d_real": loss_dreal}
+    if do_r1:
+        g_img, g_raw = torch.autograd.grad(real_logits.sum(),
+                                           [real_img["image"], real_img["image_raw"]],
+                                           create_graph=True)
+        r1 = torch.mean(g_img.square().sum(dim=(1, 2, 3)) + g_raw.square().sum(dim=(1, 2, 3)))
+        total = total + weights.adv_r1_gamma / 2 * r1
+        aux["d_r1"] = r1
     return total, aux

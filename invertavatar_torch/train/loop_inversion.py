@@ -1,16 +1,23 @@
-"""e4e inversion stage: optimizer, training step and driver.
+"""Inversion training stages e4e and one-shot: optimizers, steps and drivers.
 
-Counterpart of the e4e part of `invertavatar_tpu/train/loop_inversion.py`:
-train `Encoder4Editing` against the frozen generator with the Ireal and Igen
-phases, plus the latent discriminator (WD) when `w_discriminator > 0`.
+Counterpart of the e4e and one-shot parts of
+`invertavatar_tpu/train/loop_inversion.py`:
+  * e4e: train `Encoder4Editing` against the frozen generator with the Ireal
+    and Igen phases, plus the latent discriminator (WD) when
+    `w_discriminator > 0`;
+  * one-shot: train one of the two U-Nets of a (SegFormer) `InversionNet`
+    per step, by the reference's interval schedule, with the Ireal / Igen
+    phases and the dual discriminator's Dreal / Dgen phases (R1 every
+    `wd_reg_interval` steps) when `adv > 0`.
 
 JAX expresses the freeze as an optax mask and returns new states; here
 `masked_adam` freezes every parameter outside the trainable subtree
 (`requires_grad_(False)`, gradients still flow *through* the generator to the
 codes) and a step updates the modules and optimizers in place. The JAX
-step's "three programs" (grad Ireal, grad Igen, one update) become two
-`backward()` calls accumulating into one Adam step; the WD step then runs on
-the updated encoder, in the JAX order.
+step's "programs" (grad Ireal, grad Igen, one update) become `backward()`
+calls accumulating into one Adam step; no-grad renders run under
+`torch.no_grad()`. The JAX options that only steer XLA's memory plan
+(`remat`, `donate`, `grad_subtree`, `subtree_tx`) have no counterpart.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from ..ops.resize import resize_bilinear
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.misc import resolve_device, to_device
 from ..utils.stats import Collector, StatsLogger
@@ -31,14 +39,28 @@ from .inversion import (
     e4e_igen_loss,
     e4e_ireal_loss,
     e4e_ireal_novel_loss,
+    oneshot_d_loss,
+    oneshot_igen_loss,
+    oneshot_ireal_loss,
     wd_losses,
 )
+from .loop_gan import step_generator
 from .state import TrainState
 
 
 def e4e_trainable(name: str) -> bool:
     """Only the encoder trains in the e4e stage."""
     return name.startswith("encoder.")
+
+
+def oneshot_tex_trainable(name: str) -> bool:
+    """One-shot stage, the texture U-Net's optimizer."""
+    return name.startswith("unet_encoder.texture_unet.")
+
+
+def oneshot_tri_trainable(name: str) -> bool:
+    """One-shot stage, the tri-plane SFT U-Net's optimizer."""
+    return name.startswith("unet_encoder.triplane_unet.")
 
 
 def masked_adam(module: torch.nn.Module, lr: float, predicate: Callable[[str], bool],
@@ -163,6 +185,150 @@ def make_e4e_grad_programs(net, lpips_fn: Callable, id_fn: Optional[Callable],
                           split=True)
 
 
+def _train_only(net: torch.nn.Module, opt: torch.optim.Optimizer) -> None:
+    """Make exactly the parameters `opt` steps trainable in `net` (the
+    one-shot stage holds one optimizer per U-Net and trains one per step)."""
+    keep = {id(p) for group in opt.param_groups for p in group["params"]}
+    for p in net.parameters():
+        p.requires_grad_(id(p) in keep)
+
+
+def _adam_step(opt: torch.optim.Optimizer) -> None:
+    """`opt.step()` with a zero gradient for every parameter that got none:
+    optax updates (and counts) every leaf of its mask on each step, so
+    torch's per-parameter step count stays optax's per-state count."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    opt.step()
+
+
+def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
+                       fast_igen_target: str, fast_grad: str, prefix_split: bool):
+    target_ov = nograd_overrides(fast_igen_target)
+    grad_ov = grad_overrides(fast_grad)
+    G = net.generator
+
+    def inv_forward(gen):
+        def fwd(x, c, v, return_feats):
+            prefix = None
+            if prefix_split:
+                prefix = net.prefix(x, c, v, nograd_render=target_ov, generator=gen)
+            return net(x, c, v, return_feats=return_feats, nograd_render=target_ov,
+                       grad_render=grad_ov, prefix_results=prefix, generator=gen)
+        return fwd
+
+    def gen_mapping(z, c, truncation_psi=1.0):
+        return G.mapping(z, c, truncation_psi=truncation_psi)
+
+    def gen_synthesis_featmap(gen):
+        def synth(ws, c, v):
+            return G.synthesis(ws, c, v, return_featmap=True, noise_mode="const",
+                               evaluation=target_ov is not None,
+                               rendering_overrides=target_ov, generator=gen)
+        return synth
+
+    def step(state: TrainState, d_state: Optional[TrainState], batch: Dict,
+             phase: str = "Ireal", do_r1: bool = False,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        fwd = inv_forward(generator)
+        if phase in ("Igen", "Ireal"):
+            # only the scheduled U-Net trains: the generator, the e4e encoder,
+            # the other U-Net and D keep no gradient
+            _train_only(net, state.opt)
+            d_apply = None
+            if weights.adv > 0 and d_state is not None:
+                d_state.module.requires_grad_(False)
+                d_apply = d_state.module
+            net.zero_grad(set_to_none=True)  # the other U-Net's last gradients too
+            if phase == "Igen":
+                total, losses = oneshot_igen_loss(
+                    fwd, gen_mapping, gen_synthesis_featmap(generator), d_apply, lpips_fn, id_fn,
+                    weights, batch["z"], batch["c"], batch["v"], batch.get("gen_uv"))
+            else:
+                total, losses = oneshot_ireal_loss(
+                    fwd, d_apply, lpips_fn, id_fn, weights,
+                    {"image": batch["image"], "uv": batch["uv"]}, batch["c"], batch["v"])
+            total.backward()
+            _adam_step(state.opt)
+            return {f"{phase}/{k}": v.detach() for k, v in losses.items()}
+
+        assert phase in ("Dgen", "Dreal") and d_state is not None, phase
+        with torch.no_grad():
+            if phase == "Dgen":
+                ws = gen_mapping(batch["z"], batch["c"], truncation_psi=0.8)
+                gen_out = gen_synthesis_featmap(generator)(ws, batch["c"], batch["v"])
+                i_out = fwd({"image": gen_out["image"], "uv": batch.get("gen_uv")},
+                            batch["c"], batch["v"], False)
+                real_pair = {"image": gen_out["image"][:, :3],
+                             "image_raw": gen_out["feature_image"][:, :3]}
+            else:
+                i_out = fwd({"image": batch["image"], "uv": batch["uv"]}, batch["c"],
+                            batch["v"], False)
+                real = batch["image"][:, :3]
+                real_pair = {"image": real,
+                             "image_raw": resize_bilinear(real, (128, 128), antialias=True)}
+            fake_pair = {"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]}
+        d_state.module.requires_grad_(True)
+        d_state.opt.zero_grad(set_to_none=True)
+        total, aux = oneshot_d_loss(d_state.module, fake_pair, real_pair, batch["c"], weights,
+                                    do_r1)
+        total.backward()
+        _adam_step(d_state.opt)
+        return {f"{phase}/{k}": v.detach() for k, v in aux.items()}
+
+    return step
+
+
+def make_oneshot_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
+                            weights: InversionLossWeights, fast_igen_target: str = "off",
+                            fast_grad: str = "off"):
+    """The one-shot U-Net stage's step. Returns `step(state, d_state, batch,
+    phase="Ireal", do_r1=False, generator=None) -> aux`:
+      * `phase` "Igen" or "Ireal": the inverter's loss (the adversarial term
+        through `d_state.module` when `adv > 0`), one backward, one step of
+        `state.opt`, whose parameters (one U-Net's, `masked_adam` with
+        `oneshot_tex_trainable` / `oneshot_tri_trainable`) are the only ones
+        made trainable in `state.module`;
+      * `phase` "Dgen" or "Dreal": the student forward without gradient, then
+        the dual discriminator's loss (R1 with `do_r1`) and one step of
+        `d_state.opt`.
+    `d_state` holds the `DualDiscriminator` and its Adam (None when `adv ==
+    0`: no adversarial term, no D phase). `fast_igen_target` routes the
+    no-grad renders (the Igen target, the e4e prefix render) and `fast_grad`
+    the student render (`train/fast_render.py`); `generator` feeds the
+    renderer's stochastic strata (none under those overrides). The batch is `{"image" [B,3(+mask),H,W], "c", "v", "uv" [B,6,256,256], "z",
+    "gen_uv"}` on the net's device."""
+    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad,
+                              prefix_split=False)
+
+
+def make_oneshot_grad_programs(net, lpips_fn: Callable, id_fn: Optional[Callable],
+                               weights: InversionLossWeights, fast_igen_target: str = "off",
+                               fast_grad: str = "off", fast_interpret: bool = False,
+                               prefix_split: bool = False):
+    """The JAX package's split one-shot step, with `make_oneshot_train_step`'s
+    contract and math: the Igen target renders without gradient and the D
+    phases re-run the student forward without gradient, as there.
+    `prefix_split` runs `InversionNet.prefix` on its own, under no-grad, and
+    hands it to the forward as `prefix_results`. `fast_interpret` is
+    accepted for the JAX signature and ignored."""
+    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad,
+                              prefix_split=prefix_split)
+
+
+def oneshot_phase_schedule(batch_idx: int, d_reg_interval: int = 16):
+    """(I-phase, which U-Net trains, D-phase, do_r1) of batch `batch_idx`:
+    Ireal twice then Igen twice, tri and tex alternating, R1 every
+    `d_reg_interval` batches."""
+    i_phase = "Ireal" if batch_idx % 4 < 2 else "Igen"
+    unet = "tri" if batch_idx % 2 == 0 else "tex"
+    d_phase = "Dreal" if batch_idx % 4 < 2 else "Dgen"
+    do_r1 = batch_idx % d_reg_interval == 0
+    return i_phase, unet, d_phase, do_r1
+
+
 @dataclasses.dataclass
 class InversionTrainConfig:
     run_dir: str = "runs/inversion"
@@ -234,3 +400,78 @@ def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
             break
     logger.close()
     return state, wd_state
+
+
+def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator[Dict],
+                  cfg: InversionTrainConfig, lpips_fn: Callable, id_fn: Optional[Callable] = None,
+                  max_steps: Optional[int] = None, resume_path: Optional[str] = None, mesh=None,
+                  fast_igen_target: str = "off", fast_grad: str = "off",
+                  on_step: Optional[Callable] = None, device="cuda"):
+    """One-shot-stage driver: `make_oneshot_train_step` over `batch_iter` by
+    `oneshot_phase_schedule`, with one Adam per U-Net (`masked_adam`, lr
+    `cfg.lr`) and, when `d_module` is given and `adv > 0`, an Adam for the
+    dual discriminator (lr `cfg.lr`) whose phase follows each I phase, with
+    R1 every `wd_reg_interval` steps. Step `i` draws from
+    `step_generator(seed, i)` (its D phase from `i + 1`, as the JAX package
+    folds its key). Stats every 50 steps and at `max_steps`; one snapshot,
+    `snapshot-final.pt` in `run_dir`, at the end; `resume_path` restores
+    one. `fast_igen_target` / `fast_grad` pick the renders' overrides;
+    `on_step(step_idx, cur_nimg, aux)` runs after each step. Runs on CUDA
+    unless `device="cpu"` is asked for; `mesh` (data parallelism) is not
+    ported (ROADMAP A10). Returns (state, d_state), `state.opt` the last
+    trained U-Net's."""
+    if mesh is not None:
+        raise NotImplementedError("train_oneshot runs on one device: data parallelism over a "
+                                  "mesh is ROADMAP A10")
+    device = resolve_device(device)
+    net.to(device)
+    opts = {"tex": masked_adam(net, cfg.lr, oneshot_tex_trainable),
+            "tri": masked_adam(net, cfg.lr, oneshot_tri_trainable)}
+    d_state = None
+    if d_module is not None and cfg.weights.adv > 0:
+        d_module.to(device)
+        d_state = TrainState(d_module, torch.optim.Adam(d_module.parameters(), lr=cfg.lr,
+                                                        eps=1e-8))
+    cur_nimg = step_idx = 0
+    if resume_path is not None:
+        snap = restore_checkpoint(resume_path, map_location=device)
+        net.load_state_dict(snap["net"])
+        for k, opt in opts.items():
+            opt.load_state_dict(snap["opt"][k])
+        if d_state is not None:
+            d_state.load_state_dict(snap["d_state"])
+        cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+
+    step_fn = make_oneshot_train_step(net, lpips_fn, id_fn, cfg.weights, fast_igen_target,
+                                      fast_grad)
+    collector = Collector()
+    logger = StatsLogger(cfg.run_dir)
+    state = TrainState(net, opts["tex"])
+    t0 = time.time()
+    while (max_steps is None or step_idx < max_steps) and cur_nimg < cfg.total_kimg * 1000:
+        batch = to_device(next(batch_iter), device)
+        i_phase, unet, d_phase, do_r1 = oneshot_phase_schedule(step_idx, cfg.wd_reg_interval)
+        state = TrainState(net, opts[unet])
+        aux = step_fn(state, d_state, batch, phase=i_phase,
+                      generator=step_generator(cfg.seed, step_idx, device))
+        if d_state is not None:
+            aux.update(step_fn(state, d_state, batch, phase=d_phase, do_r1=do_r1,
+                               generator=step_generator(cfg.seed, step_idx + 1, device)))
+        cur_nimg += cfg.batch_size
+        step_idx += 1
+        for k, v in aux.items():
+            collector.report(k, v.float().cpu().numpy())
+        if on_step is not None:
+            on_step(step_idx - 1, cur_nimg, aux)
+        if step_idx % 50 == 0 or (max_steps and step_idx >= max_steps):
+            collector.update()
+            print(f"kimg {cur_nimg / 1000:.1f} ({time.time() - t0:.0f}s) "
+                  + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+            logger.write(collector, cur_nimg)
+    payload = {"net": net.state_dict(), "opt": {k: o.state_dict() for k, o in opts.items()},
+               "cur_nimg": cur_nimg, "step_idx": step_idx}
+    if d_state is not None:
+        payload["d_state"] = d_state.state_dict()
+    save_checkpoint(os.path.join(cfg.run_dir, "snapshot-final.pt"), payload)
+    logger.close()
+    return state, d_state

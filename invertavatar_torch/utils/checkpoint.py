@@ -55,7 +55,8 @@ def triplane_config_from_init_kwargs(init_kwargs: Dict[str, Any]) -> Dict[str, A
     )
 
 
-def _load_state(module: torch.nn.Module, state: Dict[str, np.ndarray]) -> torch.nn.Module:
+def load_reference_state(module: torch.nn.Module,
+                         state: Dict[str, np.ndarray]) -> torch.nn.Module:
     """Fill `module` from a reference state dict (numpy arrays by name)."""
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()
                if k.rsplit(".", 1)[-1] not in _DROP_LEAVES}
@@ -75,7 +76,7 @@ def load_triplane_from_pkl(path: str, key: str = "G_ema", device="cuda"):
     entry = load_network_pkl(path)[key]
     with torch.device(device):
         G = TriPlaneGenerator(**triplane_config_from_init_kwargs(entry["init_kwargs"]))
-    return _load_state(G, entry["state_dict"]).eval()
+    return load_reference_state(G, entry["state_dict"]).eval()
 
 
 def _stub_children(obj) -> Dict[str, Any]:
@@ -126,7 +127,7 @@ def load_inversion_from_pkl(path: str, key: str = "G", device="cuda"):
     with torch.device(device):
         net = InversionNet(triplane_config_from_init_kwargs(gen_kwargs),
                            **_inversion_config(state))
-    return _load_state(net, state).eval()
+    return load_reference_state(net, state).eval()
 
 
 def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:

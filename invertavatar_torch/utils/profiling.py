@@ -1,5 +1,5 @@
 """Where the time of a reenactment frame, a few-shot absorb, a one-shot
-inversion or a training step (e4e, GAN) goes on one GPU.
+inversion or a training step (e4e, GAN, one-shot) goes on one GPU.
 
     python -m invertavatar_torch.utils.profiling          # the 512² frame
     python -m invertavatar_torch.utils.profiling online   # ... driven by FaceVerse
@@ -8,6 +8,7 @@ inversion or a training step (e4e, GAN) goes on one GPU.
     python -m invertavatar_torch.utils.profiling e4e      # one e4e training step
     python -m invertavatar_torch.utils.profiling gan      # one GAN step, batch 4
     python -m invertavatar_torch.utils.profiling gan_r1   # ... with the R1 penalty
+    python -m invertavatar_torch.utils.profiling oneshot_train  # Ireal+Dreal, Igen+Dgen
 
 `frame` builds the flagship generator with seeded random weights (as
 `chip_smoke.py` does) and precomputes the avatar once; `online` drives it
@@ -21,13 +22,19 @@ are), batch 4, or with R1 (`gan_r1`: 1 warm-up, 2 timed and 1 traced
 iteration, as it takes seconds); `e4e` builds the e4e network (float32 flagship generator, IR-SE-50
 encoder, latent discriminator) and steps `make_e4e_grad_programs` with the
 B3 fast paths on a synthetic B=1 512² batch, as `chip_smoke.py` phase 10
-does. Each times untraced iterations on the host clock, then traces
+does; `oneshot_train` builds phase 19's one-shot training models (float32
+flagship generator with 48+48 samples, IR-SE-50 encoder, float32 SegFormer
+U-Nets, the dual discriminator at 512²) and runs, per iteration, an Ireal
+step (tri U-Net) with its Dreal phase and an Igen step (tex U-Net) with its
+Dgen phase, batch 2, 512², under the B3 fast paths (1 warm-up, 2 timed and
+1 traced iteration). Each times untraced iterations on the host clock, then traces
 iterations with `torch.profiler` and prints, per iteration:
   * host ms and the peak memory (untraced) and device busy ms (the sum of kernel times; one
     stream, so kernels do not overlap) and the device's idle share
   * for all but `e4e`, each stage (frame: the driving signal, rasterize,
     face backbone, renderer, super-resolution; absorb and oneshot: encode,
-    the texture and static backbones, the render, both U-Nets; gan: the
+    the texture and static backbones, the render, both U-Nets;
+    oneshot_train: those and the discriminator's forwards; gan: the
     generator's and the discriminator's forwards, the backward passes and
     Adam falling in the rest), and the rest: its window
     on the device timeline, the device time busy inside it, its device ops
@@ -218,6 +225,40 @@ def _e4e(dev):
     return (lambda: step(state, wd_state, batch)), (), contextlib.nullcontext()
 
 
+def _oneshot_train(dev):
+    """(iteration, stages, scopes) of two one-shot training steps at phase
+    19's shape: Ireal (tri U-Net) + Dreal, then Igen (tex U-Net) + Dgen."""
+    from ..flagship import oneshot_train_batch, oneshot_train_models
+    from ..train import loop_inversion as li
+    from ..train.inversion import InversionLossWeights
+    from ..train.state import TrainState
+
+    net, D = oneshot_train_models(seed=19, device=dev)
+    batch = oneshot_train_batch(2, 512, seed=19, device=dev)
+    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, raw_l1=1.0, tri=0.001,
+                                   texture=0.001, adv=0.01)
+    step = li.make_oneshot_train_step(net, lambda a, b: (a - b).abs().mean(), None, weights,
+                                      fast_igen_target="exact", fast_grad="pallas")
+    states = {u: TrainState(net, li.masked_adam(net, 1e-4, pred)) for u, pred in
+              (("tex", li.oneshot_tex_trainable), ("tri", li.oneshot_tri_trainable))}
+    d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=1e-4))
+
+    def run():
+        for i_phase, unet, d_phase in (("Ireal", "tri", "Dreal"), ("Igen", "tex", "Dgen")):
+            step(states[unet], d_state, batch, phase=i_phase)
+            step(states[unet], d_state, batch, phase=d_phase)
+
+    G, unets = net.generator, net.unet_encoder
+    targets = [("encode", net, "encode"),
+               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
+               ("backbone", G.backbone.synthesis, "forward"),
+               ("render", G, "synthesis_withTexture"),
+               ("texture_unet", unets.texture_unet, "forward"),
+               ("triplane_unet", unets.triplane_unet, "forward"),
+               ("discriminator", D, "forward")]
+    return run, [t[0] for t in targets], _stage_scopes(targets)
+
+
 def main(argv=None):
     import sys
 
@@ -226,9 +267,11 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     paths = {"frame": _frame, "online": lambda d: _frame(d, online=True), "absorb": _absorb,
-             "oneshot": _oneshot, "e4e": _e4e, "gan": _gan, "gan_r1": lambda d: _gan(d, True)}
+             "oneshot": _oneshot, "e4e": _e4e, "gan": _gan, "gan_r1": lambda d: _gan(d, True),
+             "oneshot_train": _oneshot_train}
     run, stage_names, scopes = paths[path](dev)
-    warmup, timed, traced = (1, 2, 1) if path == "gan_r1" else (3, TIMED_FRAMES, TRACED_FRAMES)
+    warmup, timed, traced = ((1, 2, 1) if path in ("gan_r1", "oneshot_train")
+                             else (3, TIMED_FRAMES, TRACED_FRAMES))
     for _ in range(warmup):
         run()
     torch.cuda.synchronize()

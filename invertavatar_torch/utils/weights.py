@@ -24,6 +24,11 @@ shifts as they are; `CrossAttention`'s packed `in_proj_weight` is stored in
 the torch layout already) keep the JAX module names, which are the torch
 reference's.
 
+The loss networks convert whole by the same rules: LPIPS (`net.<i>` convs
+HWIO -> OIHW, the `lin.<i>.1` 1×1 heads) and the ArcFace backbone (the IR-SE
+trunk, `output_layer.0` BatchNorm and `.4` BatchNorm1d statistics from
+`batch_stats`, the `output_layer.3` linear [in, out] -> [out, in]).
+
 `resample_filter` buffers are not in the trees: the port rebuilds them from
 their taps and keeps them out of the state dict.
 """
