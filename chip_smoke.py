@@ -310,7 +310,29 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
     return kernels
 
 
-def transpose_check(torch, ps, label, grid, cot, planes_shape, transpose=None):
+def b3_forward_check(torch, ps, tag, label, planes, grid, out):
+    """B3 with the float32 payload (the training route) and bf16 (the eval
+    route) against its plain version, and `out` (B3's output recorded in a
+    render) against a fresh launch; returns {dtype: max |k - p|}."""
+    m = ps.sample_planes_windowed_reference(planes.abs(), grid)  # the rounding's scale Σw|v|
+    errs = {}
+    for dt, rel in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
+        k = ps.sample_planes_windowed(planes, grid, dt)
+        p = ps.sample_planes_windowed_reference(planes, grid, dt)
+        e = (k.float() - p.float()).abs()
+        bad = int((e > p.float().abs() * rel + 2e-6 * m).sum())
+        errs[dt] = e.max().item()
+        print(f"{tag} B3 {label} {str(dt)[6:]}: max|k-p| {e.max().item():.3e} mean "
+              f"{e.mean().item():.3e}; tolerance |k-p| <= {rel:.3g}|p| + 2e-6·Σw|v| "
+              f"(fused multiply-adds; bf16: one ulp of the output), violations {bad}")
+        if bad or not torch.isfinite(k.float()).all():
+            fail(f"B3 ({dt}, {label}) disagrees with its plain version")
+    if not torch.equal(out, ps.sample_planes_windowed(planes, grid)):
+        fail(f"the recorded render's B3 output ({label}) differs from a fresh launch")
+    return errs
+
+
+def transpose_check(torch, ps, label, grid, cot, planes_shape, transpose=None, tag="[8]"):
     """The transpose kernel (the port's, or `transpose`) against its plain
     version; returns max |k - p|."""
     k = (transpose or ps.windowed_sample_transpose)(grid, cot, planes_shape)
@@ -318,7 +340,7 @@ def transpose_check(torch, ps, label, grid, cot, planes_shape, transpose=None):
     m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes_shape)
     e = (k - p).abs()
     bad = int((e > 1e-5 * m + 1e-7).sum())
-    print(f"[8] B3 transpose {label}: max|k-p| {e.max().item():.3e} mean "
+    print(f"{tag} B3 transpose {label}: max|k-p| {e.max().item():.3e} mean "
           f"{e.mean().item():.3e}; tolerance |k-p| <= 1e-5·Σw|cot| + 1e-7 (float32 "
           f"sums in no fixed order), violations {bad}")
     if bad or not torch.isfinite(k).all():
@@ -440,23 +462,7 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
             R, S = grid.shape[1], grid.shape[2]
             n_pts = N * R * S
             planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
-            # forward, float32 payload (the training route) and bf16 (the eval
-            # route). Scale of the rounding: m = Σ_taps w·|v|, the sample of |planes|.
-            m = ps.sample_planes_windowed_reference(planes.abs(), grid)
-            errs = {}
-            for dt, rel in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
-                k = ps.sample_planes_windowed(planes, grid, dt)
-                p = ps.sample_planes_windowed_reference(planes, grid, dt)
-                e = (k.float() - p.float()).abs()
-                bad = int((e > p.float().abs() * rel + 2e-6 * m).sum())
-                errs[dt] = e.max().item()
-                print(f"[8] B3 {label} S={S} {str(dt)[6:]}: max|k-p| {e.max().item():.3e} mean "
-                      f"{e.mean().item():.3e}; tolerance |k-p| <= {rel:.3g}|p| + 2e-6·Σw|v| "
-                      f"(fused multiply-adds; bf16: one ulp of the output), violations {bad}")
-                if bad or not torch.isfinite(k.float()).all():
-                    fail(f"B3 ({dt}) disagrees with its plain version")
-            if not torch.equal(out, ps.sample_planes_windowed(planes, grid)):
-                fail("the recorded student render's B3 output differs from a fresh launch")
+            errs = b3_forward_check(torch, ps, "[8]", f"{label} S={S}", planes, grid, out)
             f_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid), "sample_kernel<")
             f_plain = device_ms(lambda: ps.sample_planes_windowed_reference(planes, grid))
             f_lib = device_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
@@ -1107,14 +1113,18 @@ def timed_oneshot_phases(torch, li, ps, phases):
 def oneshot_train_phases(torch, dev, card):
     """Phases 18-19: the one-shot training step, small, on the card against
     the `F.grid_sample` route and the CPU; then `train_oneshot` at flagship
-    width. Returns the B3 / transpose launches of phase 19."""
+    width. Returns the kernels' launches in phase 19's `train_oneshot` run,
+    and {kernel: {render pass: (max |k - p|, ms, bound ms)}} of B3 and its
+    transpose at phase 19's own shapes."""
     import tempfile
 
     import numpy as np
 
     from invertavatar_torch.flagship import oneshot_train_batch, oneshot_train_models
+    from invertavatar_torch.ops import fused_render as fr
     from invertavatar_torch.ops import plane_sample as ps
     from invertavatar_torch.ops.resize import resize_bilinear
+    from invertavatar_torch.render import renderer as rmod
     from invertavatar_torch.train import loop_inversion as li
     from invertavatar_torch.train.fast_render import grad_overrides, nograd_overrides
     from invertavatar_torch.train.inversion import InversionLossWeights, oneshot_d_loss
@@ -1143,72 +1153,86 @@ def oneshot_train_phases(torch, dev, card):
                  map_num_layers=2)
     d_cfg = dict(c_dim=25, img_resolution=256, img_channels=6, channel_base=1024,
                  channel_max=64, num_fp16_res=0)
-    t0 = time.perf_counter()
-    net_cpu, d_cpu = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=18, device="cpu")
-    sd0 = {k: v.clone() for k, v in net_cpu.state_dict().items()}
-    dsd0 = {k: v.clone() for k, v in d_cpu.state_dict().items()}
-    net_gpu, d_gpu = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=18, device=dev)
     schedule = [("Ireal", "tri", False), ("Dreal", "tri", True), ("Igen", "tex", False),
                 ("Dgen", "tex", False)]
-    results = {}
-    for label, n, D, d, fast_grad in (("card B3", net_gpu, d_gpu, dev, "pallas"),
-                                      ("card grid_sample", net_gpu, d_gpu, dev, "structured"),
-                                      ("CPU", net_cpu, d_cpu, torch.device("cpu"), "pallas")):
-        batch = oneshot_train_batch(1, 256, z_dim=32, seed=18, device=d)
-        step = li.make_oneshot_train_step(n, l1, None, weights, fast_igen_target="exact",
-                                          fast_grad=fast_grad)
-        n0 = (ps.sample_planes_windowed.launches, ps.windowed_sample_transpose.launches)
-        out = {}
-        for phase, unet, r1 in schedule:  # each phase from the same weights
-            n.load_state_dict(sd0)
-            D.load_state_dict(dsd0)
-            pred = li.oneshot_tex_trainable if unet == "tex" else li.oneshot_tri_trainable
-            state = TrainState(n, li.masked_adam(n, 1e-4, pred))
-            d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
-            aux = step(state, d_state, batch, phase=phase, do_r1=r1)
-            trained = n if phase.startswith("I") else D
-            grads = {k: p.grad.detach().float().cpu() for k, p in trained.named_parameters()
-                     if p.grad is not None and p.requires_grad}
-            out[phase] = ({k: float(v) for k, v in aux.items()}, grads)
-        results[label] = out
-        print(f"[18] {label}: B3 / transpose launches over the four phases "
-              f"{ps.sample_planes_windowed.launches - n0[0]} / "
-              f"{ps.windowed_sample_transpose.launches - n0[1]}")
-    # The D phases' conditioning, on the CPU alone: Dreal's D gradient (R1
-    # on) against the same with the fake pair moved by N(0, 1e-6), float32
-    # rounding's size. The tiny random generator's inversion render is nearly
-    # flat, so whole channels of D's pre-activations sit together near a
-    # leaky-ReLU kink, and its gradient moves by far more than its inputs.
-    net_cpu.load_state_dict(sd0)
-    d_cpu.load_state_dict(dsd0)
-    d_cpu.requires_grad_(True)
-    batch = oneshot_train_batch(1, 256, z_dim=32, seed=18, device="cpu")
-    with torch.no_grad():
-        i_out = net_cpu({"image": batch["image"], "uv": batch["uv"]}, batch["c"], batch["v"],
-                        nograd_render=nograd_overrides("exact"),
-                        grad_render=grad_overrides("pallas"))
-    fake = {"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]}
-    real = {"image": batch["image"],
-            "image_raw": resize_bilinear(batch["image"], (128, 128), antialias=True)}
-    gen = torch.Generator().manual_seed(18)
-    d_grads = []
-    for eps in (0.0, 1e-6):
-        d_cpu.zero_grad(set_to_none=True)
-        moved = {k: v + eps * torch.randn(v.shape, generator=gen) for k, v in fake.items()}
-        oneshot_d_loss(d_cpu, moved, real, batch["c"], weights, True)[0].backward()
-        d_grads.append(torch.cat([p.grad.flatten() for p in d_cpu.parameters()]))
-    d_sens = ((d_grads[1] - d_grads[0]).norm() / d_grads[0].norm()).item()
-    print(f"[18] conditioning on the CPU: N(0, 1e-6) on Dreal's fake pair moves D's gradient by "
-          f"{d_sens:.3e} of its norm")
-    del net_cpu, net_gpu, d_cpu, d_gpu, d_grads, i_out
+
+    def small_models(seed, device):
+        """The phase's networks; the generator's decoder weights scaled by 10.
+        At N(0, 0.1) draws the tiny generator's raw render is flat (spatial
+        std ~2e-5 against ~1e-3 after the scaling), so whole channels of D sit
+        together at a leaky-ReLU kink, and float32 noise in the fake pair
+        moves D's gradient by up to ~1e-3 of its norm: a fixture that tests
+        no program."""
+        net, D = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=seed, device=device)
+        with torch.no_grad():
+            for k, p in net.generator.decoder.named_parameters():
+                if k.endswith("weight"):
+                    p.mul_(10.0)
+        return net, D
+
+    def run_routes(seed):
+        """{route: {phase: (aux, gradients)}}, each phase from the same weights."""
+        net_cpu, d_cpu = small_models(seed, "cpu")
+        sd0 = {k: v.clone() for k, v in net_cpu.state_dict().items()}
+        dsd0 = {k: v.clone() for k, v in d_cpu.state_dict().items()}
+        net_gpu, d_gpu = small_models(seed, dev)
+        results = {}
+        for label, n, D, d, fast_grad in (("card B3", net_gpu, d_gpu, dev, "pallas"),
+                                          ("card grid_sample", net_gpu, d_gpu, dev, "structured"),
+                                          ("CPU", net_cpu, d_cpu, torch.device("cpu"), "pallas")):
+            batch = oneshot_train_batch(1, 256, z_dim=32, seed=seed, device=d)
+            step = li.make_oneshot_train_step(n, l1, None, weights, fast_igen_target="exact",
+                                              fast_grad=fast_grad)
+            n0 = (ps.sample_planes_windowed.launches, ps.windowed_sample_transpose.launches)
+            out = {}
+            for phase, unet, r1 in schedule:
+                n.load_state_dict(sd0)
+                D.load_state_dict(dsd0)
+                pred = li.oneshot_tex_trainable if unet == "tex" else li.oneshot_tri_trainable
+                state = TrainState(n, li.masked_adam(n, 1e-4, pred))
+                d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
+                aux = step(state, d_state, batch, phase=phase, do_r1=r1)
+                trained = n if phase.startswith("I") else D
+                grads = {k: p.grad.detach().float().cpu() for k, p in trained.named_parameters()
+                         if p.grad is not None and p.requires_grad}
+                out[phase] = ({k: float(v) for k, v in aux.items()}, grads)
+            results[label] = out
+            print(f"[18] seed {seed}, {label}: B3 / transpose launches over the four phases "
+                  f"{ps.sample_planes_windowed.launches - n0[0]} / "
+                  f"{ps.windowed_sample_transpose.launches - n0[1]}")
+        # The fixture's conditioning, on the CPU: Dreal's D gradient (R1 on)
+        # against the same with the fake pair moved by N(0, 1e-6), float32
+        # rounding's size
+        net_cpu.load_state_dict(sd0)
+        d_cpu.load_state_dict(dsd0)
+        d_cpu.requires_grad_(True)
+        batch = oneshot_train_batch(1, 256, z_dim=32, seed=seed, device="cpu")
+        with torch.no_grad():
+            i_out = net_cpu({"image": batch["image"], "uv": batch["uv"]}, batch["c"], batch["v"],
+                            nograd_render=nograd_overrides("exact"),
+                            grad_render=grad_overrides("pallas"))
+        fake = {"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]}
+        real = {"image": batch["image"],
+                "image_raw": resize_bilinear(batch["image"], (128, 128), antialias=True)}
+        gen = torch.Generator().manual_seed(seed)
+        d_grads = []
+        for eps in (0.0, 1e-6):
+            d_cpu.zero_grad(set_to_none=True)
+            moved = {k: v + eps * torch.randn(v.shape, generator=gen) for k, v in fake.items()}
+            oneshot_d_loss(d_cpu, moved, real, batch["c"], weights, True)[0].backward()
+            d_grads.append(torch.cat([p.grad.flatten() for p in d_cpu.parameters()]))
+        d_sens = ((d_grads[1] - d_grads[0]).norm() / d_grads[0].norm()).item()
+        raw_std = fake["image_raw"].std(dim=(2, 3)).mean().item()
+        print(f"[18] seed {seed}, the fixture on the CPU: the raw render's spatial std "
+              f"{raw_std:.3e}; N(0, 1e-6) on Dreal's fake pair moves D's gradient by "
+              f"{d_sens:.3e} of its norm")
+        return results
 
     def compare(label, got, ref):
         """Float32 on every side, TF32 off: the losses to 1e-3 relative
-        (+1e-7), phase 9's bar; the U-Net's gradient (I phases) to 1e-3 of
-        its norm. D's gradient (D phases) to 1e-2 of its norm: its
-        conditioning, printed above, lets float32 noise in the fake pair move
-        it by ~1e-3. No per-entry bar: a pre-activation within noise of a
-        kink flips its slope, so the largest entry differences are printed."""
+        (+1e-7), phase 9's bar; the trained module's gradient (the U-Net in
+        the I phases, D in the D phases) to 1e-3 of its norm, and each entry
+        to 1e-3 of the largest entry."""
         for phase, _, _ in schedule:
             (aux, grads), (aux_r, grads_r) = got[phase], ref[phase]
             bad = [k for k in aux_r if not (np.isfinite(aux[k]) and
@@ -1220,19 +1244,23 @@ def oneshot_train_phases(torch, dev, card):
             diffs = {k: (grads[k] - grads_r[k]).abs().max().item() / scale for k in grads_r}
             print(f"[18] {label}, {phase}: " + " ".join(
                 f"{k}={aux[k]:.7g}/{aux_r[k]:.7g}" for k in sorted(aux_r)) +
-                f"; {len(grads_r)} gradients, |d| {rel:.3e} of their norm {norm:.3e} "
-                f"(< {'1e-3' if phase.startswith('I') else '1e-2'}); "
-                f"largest entry differences, of the largest entry {scale:.3e}: " + ", ".join(
-                    f"{k} {diffs[k]:.3e}" for k in sorted(diffs, key=diffs.get)[-3:]))
+                f"; {len(grads_r)} gradients, |d| {rel:.3e} of their norm {norm:.3e} (< 1e-3); "
+                f"largest entry differences, of the largest entry {scale:.3e} (< 1e-3): " +
+                ", ".join(f"{k} {diffs[k]:.3e}" for k in sorted(diffs, key=diffs.get)[-3:]))
             if sorted(aux) != sorted(aux_r) or bad or sorted(grads) != sorted(grads_r) \
-                    or not rel < (1e-3 if phase.startswith("I") else 1e-2):
+                    or not (rel < 1e-3 and max(diffs.values()) < 1e-3):
                 fail(f"the small one-shot step, {label}, disagrees in {phase}: {bad}")
 
-    compare("card B3 vs CPU", results["card B3"], results["CPU"])
-    compare("card grid_sample vs CPU", results["card grid_sample"], results["CPU"])
-    compare("card B3 vs card grid_sample", results["card B3"], results["card grid_sample"])
-    print(f"[18] small one-shot step checked in {time.perf_counter() - t0:.1f} s")
-    del results
+    t0 = time.perf_counter()
+    for seed in (18, 28):
+        results = run_routes(seed)
+        compare(f"seed {seed}, card B3 vs CPU", results["card B3"], results["CPU"])
+        compare(f"seed {seed}, card grid_sample vs CPU", results["card grid_sample"],
+                results["CPU"])
+        compare(f"seed {seed}, card B3 vs card grid_sample", results["card B3"],
+                results["card grid_sample"])
+        del results
+    print(f"[18] small one-shot step checked on two seeds in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 19
     t0 = time.perf_counter()
@@ -1251,6 +1279,41 @@ def oneshot_train_phases(torch, dev, card):
           f"{sum(p.numel() for p in D.parameters()) / 1e6:.1f} M parameters (float32 "
           f"generator, 48+48 samples; D at 512², bf16 top 4 resolutions) in "
           f"{time.perf_counter() - t0:.2f} s")
+    # B3 and its transpose at this path's own shapes: one student render of
+    # the first batch recorded and held against the plain versions
+    calls = []
+    b = batches[0]
+    with torch.no_grad(), recording(rmod, "sample_planes_windowed_cvjp", calls):
+        net({"image": b["image"], "uv": b["uv"]}, b["c"], b["v"],
+            nograd_render=nograd_overrides("exact"), grad_render=grad_overrides("pallas"))
+    torch.cuda.synchronize()
+    if len(calls) != 2:
+        fail(f"a student render made {len(calls)} B3 calls, expected 2 (coarse, fine)")
+    checks = {"plane_sample": {}, "plane_sample_transpose": {}}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    with torch.no_grad():
+        for (args, _, out), label in zip(calls, ("coarse", "fine")):
+            planes, grid = args
+            N, H, W, C = planes.shape
+            tag = f"student {label} B={ONESHOT_BATCH} S={grid.shape[2]}"
+            errs = b3_forward_check(torch, ps, "[19]", tag, planes, grid, out)
+            cot = torch.randn((*grid.shape[:3], C), generator=gen, device=dev)
+            e_t = transpose_check(torch, ps, tag, grid, cot, planes.shape, tag="[19]")
+            f_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid), "sample_kernel<")
+            t_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
+                             "transpose_kernel(")
+            n_pts = grid.numel() // 2
+            # forward: grid and planes read, samples written; the transpose:
+            # grid and cotangent read, planes written; the same bytes and taps
+            b_ms, b_by = bound(grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4,
+                               n_pts * 4 * C * 2)
+            print(f"[19] B3 {tag}: planes {tuple(planes.shape)}, grid {tuple(grid.shape)}; fp32 "
+                  f"kernel {f_ms:.4f} ms, transpose kernel {t_ms:.4f} ms, bound of each "
+                  f"{b_ms:.4f} ms ({b_by}) on {card}")
+            checks["plane_sample"][label] = (errs[torch.float32], f_ms, b_ms)
+            checks["plane_sample_transpose"][label] = (e_t, t_ms, b_ms)
+            del cot
+    del calls, planes, grid, out
     snap = {"unets": {k: [p.detach().clone() for p in m.parameters()] for k, m in unets.items()},
             "D": [p.detach().clone() for p in D.parameters()]}
     moved, phases, aux_all = [], [], []
@@ -1268,6 +1331,7 @@ def oneshot_train_phases(torch, dev, card):
         aux_all.append({k: float(v) for k, v in aux.items()})
 
     ps.sample_planes_windowed.launches = ps.windowed_sample_transpose.launches = 0
+    fr.fused_render.launches = fr.fused_merged_march.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as run_dir, \
@@ -1277,12 +1341,14 @@ def oneshot_train_phases(torch, dev, card):
         li.train_oneshot(net, D, iter(batches), cfg, l1, max_steps=N_ONESHOT_TRAIN,
                          fast_igen_target="exact", fast_grad="pallas", on_step=on_step,
                          device=dev)
+        torch.cuda.synchronize()
+        launches = {"plane_sample": ps.sample_planes_windowed.launches,
+                    "plane_sample_transpose": ps.windowed_sample_transpose.launches,
+                    "fused_render": fr.fused_render.launches,
+                    "fused_merged_march": fr.fused_merged_march.launches}
+        total_s = time.perf_counter() - t1
         snap_bytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in os.listdir(run_dir)
                          if f.startswith("snapshot-"))
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t1
-    launches = {"plane_sample": ps.sample_planes_windowed.launches,
-                "plane_sample_transpose": ps.windowed_sample_transpose.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # expected launches of each phase, counted from the code: B3 twice per
     # render (coarse, fine) for the Igen target, the e4e prefix render and the
@@ -1317,7 +1383,8 @@ def oneshot_train_phases(torch, dev, card):
         by_kind.setdefault(ph + ("+R1" if r1 else ""), []).append(ms)
     step_ms = [timed[2 * i][2] + timed[2 * i + 1][2] for i in range(len(timed) // 2)]
     expect = {"plane_sample": sum(per_phase[p][0] for p, _ in expect_phases),
-              "plane_sample_transpose": sum(per_phase[p][1] for p, _ in expect_phases)}
+              "plane_sample_transpose": sum(per_phase[p][1] for p, _ in expect_phases),
+              "fused_render": 0, "fused_merged_march": 0}  # B1/B2: the `fused` target only
     print(f"[19] one-shot training at flagship width, batch {ONESHOT_BATCH}, 512²: "
           f"{N_ONESHOT_TRAIN} steps of `train_oneshot` (exact / pallas) in {total_s:.1f} s "
           f"with the final snapshot ({snap_bytes / 2 ** 30:.2f} GiB); steps "
@@ -1327,9 +1394,9 @@ def oneshot_train_phases(torch, dev, card):
           f" (host clock, synchronized); peak memory {peak:.3f} GiB on {card}; launches "
           f"{launches}, expected {expect}")
     if launches != expect:
-        fail(f"B3 launches {launches} in {N_ONESHOT_TRAIN} one-shot steps, expected {expect}")
+        fail(f"launches {launches} in {N_ONESHOT_TRAIN} one-shot steps, expected {expect}")
     del net, D, batches, snap, frozen0
-    return launches
+    return launches, checks
 
 
 def main(argv=None):
@@ -1492,10 +1559,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 18-19
-    fr.fused_render.launches = fr.fused_merged_march.launches = 0
-    os_train_launches = oneshot_train_phases(torch, dev, card)
-    os_train_launches.update(fused_render=fr.fused_render.launches,
-                             fused_merged_march=fr.fused_merged_march.launches)
+    os_train_launches, os_train_checks = oneshot_train_phases(torch, dev, card)
     for k in kernels:
         if k["name"] in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
@@ -1509,6 +1573,11 @@ def main(argv=None):
         else:
             k["launches_by_path"] = {"e4e_train": k["launches"],
                                      "oneshot_train": os_train_launches[k["name"]]}
+            # the checks and times at the one-shot training path's shapes
+            at = os_train_checks[k["name"]]
+            k["oneshot_train_max_abs_err"] = max(e for e, _, _ in at.values())
+            k["oneshot_train_ms"] = {label: ms for label, (_, ms, _) in at.items()}
+            k["oneshot_train_bound_ms"] = {label: b for label, (_, _, b) in at.items()}
     print(f"[end] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -128,25 +128,20 @@ class InversionNet(nn.Module):
 
     @torch.no_grad()
     def prefix(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
-               e4e_results: Optional[Dict] = None, evaluation: bool = False,
-               nograd_render: Optional[Dict] = None,
+               evaluation: bool = False, nograd_render: Optional[Dict] = None,
                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """The gradient-free prefix of `forward`: the e4e W+ codes, the
         texture pyramid, and the e4e render aligned to the input frames.
 
-        x {"image": [B, 3, H, W]}; cam [B, 25]; v {"uvcoords_image"};
-        `e4e_results` {"w", "texture", "static"} skips the encoding and the
-        backbones. `nograd_render` (a `train/fast_render` override dict)
+        x {"image": [B, 3, H, W]}; cam [B, 25]; v {"uvcoords_image"}.
+        `nograd_render` (a `train/fast_render` override dict)
         makes the render an evaluation render with those overrides;
         `generator` feeds the renderer's stochastic strata.
         Returns {"w", "texture", "e4e_image"}."""
         G = self.generator
-        if e4e_results is None:
-            ws = self.encode(x["image"][:, :3])
-            tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
-            static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
-        else:
-            ws, tex, static = e4e_results["w"], e4e_results["texture"], e4e_results["static"]
+        ws = self.encode(x["image"][:, :3])
+        tex = G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const")
+        static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
         e4e_image = G.synthesis_withTexture(
             ws, tex, cam, v, static_feats=static, noise_mode="const",
             evaluation=evaluation or nograd_render is not None,
@@ -157,27 +152,22 @@ class InversionNet(nn.Module):
         return {"w": ws, "texture": tex, "e4e_image": e4e_image}
 
     def forward(self, x: Dict[str, torch.Tensor], cam: torch.Tensor, v: Dict[str, torch.Tensor],
-                e4e_results: Optional[Dict] = None, return_feats: bool = False,
-                evaluation: bool = False, nograd_render: Optional[Dict] = None,
-                grad_render: Optional[Dict] = None, prefix_results: Optional[Dict] = None,
+                return_feats: bool = False, evaluation: bool = False,
+                nograd_render: Optional[Dict] = None, grad_render: Optional[Dict] = None,
                 generator: Optional[torch.Generator] = None):
         """Invert one frame per item: x {"image": [B, 3, H, W], "uv": [B, 6,
         256, 256]}, cam [B, 25], v {"uvcoords_image": [B, 256, 256, 3]}.
 
-        The prefix (`prefix`, given `e4e_results` and `nograd_render`)
-        carries no gradient; `prefix_results` (a `prefix` output) skips it.
-        The U-Nets refine the texture pyramid and condition the static
+        The prefix (`prefix`, given `nograd_render`) carries no gradient;
+        the U-Nets refine the texture pyramid and condition the static
         backbone, and the refined avatar is rendered with the overrides
         `grad_render` (the training step's student render). Returns the
         render's dict with "w" and "e4e_image", and with `return_feats` the
         refined "texture" and "static" feature lists."""
         G = self.generator
-        if prefix_results is None:
-            prefix_results = self.prefix(x, cam, v, e4e_results=e4e_results,
-                                         evaluation=evaluation, nograd_render=nograd_render,
-                                         generator=generator)
-        ws, tex = prefix_results["w"], prefix_results["texture"]
-        e4e_image = prefix_results["e4e_image"]
+        pre = self.prefix(x, cam, v, evaluation=evaluation, nograd_render=nograd_render,
+                          generator=generator)
+        ws, tex, e4e_image = pre["w"], pre["texture"], pre["e4e_image"]
         delta_x = e4e_image - x["image"][:, :3]
         uv_input = self.get_unet_uvinput(x["uv"], delta_x)
         tri_input = torch.cat([x["image"][:, :3], delta_x], dim=1)

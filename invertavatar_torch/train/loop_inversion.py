@@ -205,18 +205,15 @@ def _adam_step(opt: torch.optim.Optimizer) -> None:
 
 
 def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
-                       fast_igen_target: str, fast_grad: str, prefix_split: bool):
+                       fast_igen_target: str, fast_grad: str):
     target_ov = nograd_overrides(fast_igen_target)
     grad_ov = grad_overrides(fast_grad)
     G = net.generator
 
     def inv_forward(gen):
         def fwd(x, c, v, return_feats):
-            prefix = None
-            if prefix_split:
-                prefix = net.prefix(x, c, v, nograd_render=target_ov, generator=gen)
             return net(x, c, v, return_feats=return_feats, nograd_render=target_ov,
-                       grad_render=grad_ov, prefix_results=prefix, generator=gen)
+                       grad_render=grad_ov, generator=gen)
         return fwd
 
     def gen_mapping(z, c, truncation_psi=1.0):
@@ -300,22 +297,7 @@ def make_oneshot_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
     the student render (`train/fast_render.py`); `generator` feeds the
     renderer's stochastic strata (none under those overrides). The batch is `{"image" [B,3(+mask),H,W], "c", "v", "uv" [B,6,256,256], "z",
     "gen_uv"}` on the net's device."""
-    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad,
-                              prefix_split=False)
-
-
-def make_oneshot_grad_programs(net, lpips_fn: Callable, id_fn: Optional[Callable],
-                               weights: InversionLossWeights, fast_igen_target: str = "off",
-                               fast_grad: str = "off", fast_interpret: bool = False,
-                               prefix_split: bool = False):
-    """The JAX package's split one-shot step, with `make_oneshot_train_step`'s
-    contract and math: the Igen target renders without gradient and the D
-    phases re-run the student forward without gradient, as there.
-    `prefix_split` runs `InversionNet.prefix` on its own, under no-grad, and
-    hands it to the forward as `prefix_results`. `fast_interpret` is
-    accepted for the JAX signature and ignored."""
-    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad,
-                              prefix_split=prefix_split)
+    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad)
 
 
 def oneshot_phase_schedule(batch_idx: int, d_reg_interval: int = 16):

@@ -8,8 +8,8 @@ JAX package.
     against JAX `make_oneshot_train_step`, under the deterministic overrides
     (`fast_igen_target="exact"`, `fast_grad="structured"`); the ConvGRU
     U-Nets in Tier-1, the SegFormer decoders (`slow`);
-  * `prefix_split` lands where the plain step does; `train_oneshot`
-    resumes bit for bit from its snapshot;
+  * one step of the tiny network moves the scheduled U-Net alone;
+    `train_oneshot` resumes bit for bit from its snapshot;
   * `cli/train_inversion.py` for the `oneshot` and `e4e` stages on a forged
     generator pickle and a tiny dataset.
 
@@ -36,7 +36,6 @@ from invertavatar_torch.ops.resize import resize_bilinear
 from invertavatar_torch.train import inversion as port_inv
 from invertavatar_torch.train.loop_inversion import (
     InversionTrainConfig,
-    make_oneshot_grad_programs,
     make_oneshot_train_step,
     masked_adam,
     oneshot_phase_schedule,
@@ -330,7 +329,7 @@ def _jax_mock_net():
             self.unet_encoder = Pair()
 
         def __call__(self, x, cam, v, return_feats=False, nograd_render=None,
-                     grad_render=None, prefix_results=None):
+                     grad_render=None):
             sg = jax.lax.stop_gradient
             img = x["image"][..., :3]
             ws = sg(jnp.tanh(jnp.mean(img, axis=(1, 2)) @ self.encoder.we).reshape(-1, 4, 8))
@@ -380,7 +379,7 @@ class _TorchMockNet(torch.nn.Module):
             "triplane_unet": torch.nn.ParameterDict({"w_tri": p["w_tri"]})})
 
     def forward(self, x, cam, v, return_feats=False, nograd_render=None, grad_render=None,
-                prefix_results=None, generator=None):
+                generator=None):
         img = x["image"][:, :3]
         with torch.no_grad():
             ws = torch.tanh(img.mean(dim=(2, 3)) @ self.encoder["we"]).reshape(-1, 4, 8)
@@ -645,31 +644,30 @@ def _biased_d(cfg, state=None):
     return D
 
 
-def test_prefix_split_matches_plain_step():
-    """`make_oneshot_grad_programs(prefix_split=True)` runs the prefix under
-    no-grad on its own and hands it to the forward: the Ireal step lands
-    where `make_oneshot_train_step`'s does, bit for bit (the same ops in the
-    same order; the tiny ConvGRU net, deterministic overrides)."""
+@pytest.mark.parametrize("unet", ["tri", "tex"])
+def test_oneshot_step_trains_only_the_scheduled_unet(unet):
+    """One Ireal step of the tiny ConvGRU net (deterministic overrides, D
+    with its adversarial term) moves the scheduled U-Net alone: the prefix
+    runs under no-grad, so the generator and the e4e encoder keep no
+    gradient, the other U-Net keeps none either, and D is left as it was."""
     from tests.test_torch_checkpoint import tiny_inversion_net
 
     torch.manual_seed(2)
-    d0 = _biased_d(D_CFG).state_dict()
-    results = []
-    for split in (False, True):
-        net, D = tiny_inversion_net(seed=1), DualDiscriminator(**D_CFG)
-        D.load_state_dict(d0)
-        make = make_oneshot_grad_programs if split else make_oneshot_train_step
-        kw = dict(prefix_split=True) if split else {}
-        step = make(net, _l1, None, port_inv.InversionLossWeights(**OS_WEIGHTS),
-                    fast_igen_target="exact", fast_grad="structured", **kw)
-        state = TrainState(net, masked_adam(net, 1e-4, oneshot_tri_trainable))
-        d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
-        aux = step(state, d_state, _port_batch(_batch()), phase="Ireal")
-        results.append((aux, {k: v.clone() for k, v in net.state_dict().items()}))
-    (aux0, sd0), (aux1, sd1) = results
-    assert aux0["Ireal/adv"] != np.log(2.0)
-    assert sorted(aux0) == sorted(aux1) and all(torch.equal(aux0[k], aux1[k]) for k in aux0)
-    assert all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+    net, D = tiny_inversion_net(seed=1), _biased_d(D_CFG)
+    sd0 = {k: v.clone() for k, v in net.state_dict().items()}
+    dsd0 = {k: v.clone() for k, v in D.state_dict().items()}
+    step = make_oneshot_train_step(net, _l1, None, port_inv.InversionLossWeights(**OS_WEIGHTS),
+                                   fast_igen_target="exact", fast_grad="structured")
+    pred = oneshot_tri_trainable if unet == "tri" else oneshot_tex_trainable
+    state = TrainState(net, masked_adam(net, 1e-4, pred))
+    d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
+    aux = step(state, d_state, _port_batch(_batch()), phase="Ireal")
+    assert aux["Ireal/adv"] != np.log(2.0) and all(torch.isfinite(v) for v in aux.values())
+    prefix = "unet_encoder.triplane_unet." if unet == "tri" else "unet_encoder.texture_unet."
+    moved = {k for k, v in net.state_dict().items() if not torch.equal(v, sd0[k])}
+    assert moved and all(k.startswith(prefix) for k in moved)
+    assert all(p.grad is None for k, p in net.named_parameters() if not k.startswith(prefix))
+    assert all(torch.equal(v, dsd0[k]) for k, v in D.state_dict().items())
 
 
 class _NoisyMockNet(_TorchMockNet):
