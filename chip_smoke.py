@@ -86,6 +86,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      timed); per phase ms and B3 / transpose launches against the counts
      from the code, the peak memory; only the scheduled U-Net moves in each
      step, D moves, the generator and the encoder never do
+ 20. a small few-shot training step (phase 18's tiny generator, a tiny-trunk
+     ConvGRU `InversionNet`, a dual discriminator at 256², adv on) on a
+     4-frame clip in chunks of 2 (one carried GRU state): Ireal (tri-plane
+     decoder), Igen (texture decoder) and D (R1 on one seed), each from the
+     same weights, two seeds; the no-grad renders on B1/B2 (`"fused"`), the
+     grad-carrying render on B3 and its transpose (`"pallas"`) or on
+     `F.grid_sample` (`"structured"`) on the card, against the CPU's plain
+     versions; losses, the trained module's gradients, and every phase's
+     launches against the counts from the code
+ 21. few-shot training at flagship width through `train_fewshot`: the
+     float32 flagship generator (48+48 samples) and IR-SE-50 e4e encoder,
+     frozen, two float32 IR-SE-50 ConvGRU U-Nets, the dual discriminator at
+     512², LPIPS (AlexNet, seeded weights), batch 1, seeded 512² clips of
+     18 frames, 10 steps: two passes of the curriculum T = 6, 12, 12, 18, 18
+     in chunks of 6, each step Ireal, Igen and D (R1 at step 0), the no-grad
+     renders fused (B1/B2), the grad-carrying ones on B3 and its transpose;
+     B1/B2 and B3/transpose first checked and timed at this path's shapes
+     (one no-grad e4e render, one student render); per phase and per T ms,
+     the launches of each phase against the counts from the code, the peak
+     memory; only the scheduled decoder moves in each step, D moves, the
+     trunks, the generator and the encoder never do
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -121,6 +142,11 @@ GAN_BATCH = 4  # the reference's per-GPU batch (32 over 8 GPUs)
 ONESHOT_BATCH = 2  # the reference's one-shot per-GPU batch (16 over 8 GPUs)
 N_ONESHOT_TRAIN = 8  # flagship one-shot steps (phase 19): 0-3 cover the schedule, R1 at 0
 N_ONESHOT_TIMED_FROM = 4  # steps 4-7 are the timed ones
+FEWSHOT_TRAIN_BATCH = 1  # the reference's few-shot per-GPU batch (8 over 8 GPUs)
+FEWSHOT_CURRICULUM = (6, 12, 18)  # clip lengths of the few-shot schedule (phase 21)
+FEWSHOT_TC = 6  # frames per chunk
+FEWSHOT_TRAIN_T = 18  # frames per clip: the curriculum's longest
+N_FEWSHOT_TRAIN = 10  # flagship few-shot steps: two passes of the curriculum, 5-9 timed
 N_GAN_STEPS = 6  # flagship GAN steps (phase 17): step 0 runs both regularisations,
 # step 4 the density TV, the others neither
 N_GAN_REG_TIMED = 3  # warm steps with both regularisations, timed after the run
@@ -240,6 +266,14 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
     if len(b1_calls) != 1 or len(b2_calls) != 1:
         fail(f"the {label} render made {len(b1_calls)} B1 and {len(b2_calls)} B2 calls, "
              "expected one each")
+    return fused_kernel_checks(torch, fr, card, label, b1_calls[0], b2_calls[0], timed)
+
+
+def fused_kernel_checks(torch, fr, card, label, b1_call, b2_call, timed=False,
+                        tags=("[3]", "[4]")):
+    """B1 and B2 against their plain versions on one recorded call each
+    (args, kwargs, output; B2's fed B1's raw output of the same render);
+    with `timed`, both are timed and their kernel records returned."""
     kernels = []
 
     def record(name, replaces, err, ms, plain_ms, nbytes, ops, mlp, what):
@@ -247,7 +281,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
         and on the fp32 cores as before) and keep its JSON record."""
         b, by = bound(nbytes, ops, mlp)
         b_fp32, by_fp32 = bound(nbytes, ops + mlp)
-        print(f"[{'3' if name == 'fused_render' else '4'}] {name} kernel {ms:.4f} ms, plain "
+        print(f"{tags[0] if name == 'fused_render' else tags[1]} {name} kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; bound {b:.4f} ms ({by}; MLP on the TF32 tensor cores) beside "
               f"{b_fp32:.4f} ms ({by_fp32}; MLP on the fp32 cores); {nbytes / 1e6:.1f} MB, "
               f"{mlp / 1e9:.2f} GFLOP MLP + {ops / 1e9:.2f} GFLOP {what} on {card}")
@@ -258,7 +292,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
 
     with torch.inference_mode():
         # B1
-        args, kw, raw = b1_calls[0]
+        args, kw, raw = b1_call
         pl, grid, params = args[0], args[1], args[2]
         ref = fr.fused_render_reference(*args, **kw).float()
         err = (raw.float() - ref).abs()
@@ -267,7 +301,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
         C = pl.shape[-1]
         HID = params[0].shape[1]
         points = raw.shape[0] * raw.shape[1]
-        print(f"[3] B1 fused_render {label}: out {tuple(raw.shape)} bf16, {points} points; "
+        print(f"{tags[0]} B1 fused_render {label}: out {tuple(raw.shape)} bf16, {points} points; "
               f"max|k-p| {err.max().item():.3e} mean {err.mean().item():.3e}; "
               f"tolerance |k-p| <= 2^-7|p| + 1e-4, violations {bad}")
         if bad or not torch.isfinite(raw.float()).all():
@@ -281,7 +315,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
                    points * tap_flops_per_point(C), points * mlp_flops_per_point(C, HID), "taps")
 
         # B2, fed B1's raw output from the same render
-        args, kw, out_k = b2_calls[0]
+        args, kw, out_k = b2_call
         out_p = fr.fused_merged_march_reference(*args, **kw)
         worst, total, count, bad = 0.0, 0.0, 0, 0
         for a, b in zip(out_k, out_p):
@@ -294,7 +328,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
         T, Sm = is_fine.shape
         P = proj_m.shape[3]
         n_fine_pts = int(is_fine.sum().item()) * P
-        print(f"[4] B2 fused_merged_march {label}: T={T} Sm={Sm} P={P}, {n_fine_pts} fine "
+        print(f"{tags[1]} B2 fused_merged_march {label}: T={T} Sm={Sm} P={P}, {n_fine_pts} fine "
               f"points; max|k-p| {worst:.3e} mean {total / count:.3e}; "
               f"tolerance |k-p| <= 1e-4|p| + 1e-4, violations {bad}")
         if bad or not all(torch.isfinite(a).all() for a in out_k):
@@ -1081,6 +1115,74 @@ def gan_phases(torch, dev, card):
     del G, D, g_state, d_state, G_ema, batches
 
 
+# the tests' tiny generator widths (channel_base 1024, channel_max 64, 32²
+# neural render, 6+6 samples), rendering 256² through the 4X SR so that
+# frames, renders and D share one resolution (Dreal scores the frames):
+# phases 18 and 20
+SMALL_TRAIN_CFG = dict(
+    z_dim=32, c_dim=25, w_dim=512, img_resolution=256, img_channels=3,
+    rendering_kwargs={"superresolution_module": "x.SuperresolutionHybrid4X",
+                      "c_gen_conditioning_zero": False, "c_scale": 1.0,
+                      "superresolution_noise_mode": "none", "decoder_lr_mul": 1.0,
+                      "sr_antialias": True, "depth_resolution": 6,
+                      "depth_resolution_importance": 6, "box_warp": 1.0, "det_stratified": True},
+    neural_rendering_resolution=32, channel_base=1024, channel_max=64, map_num_layers=2)
+SMALL_D_CFG = dict(c_dim=25, img_resolution=256, img_channels=6, channel_base=1024,
+                   channel_max=64, num_fp16_res=0)
+
+
+def small_train_models(make, seed, device):
+    """`make(SMALL_TRAIN_CFG, SMALL_D_CFG, ...)` (a `flagship.*_train_models`
+    constructor) with tiny e4e trunks (and tiny U-Net trunks where the stage's
+    U-Nets have them), the generator's decoder weights scaled by 10. At
+    plain N(0, 0.1) draws the tiny generator's raw render is flat (spatial
+    std ~2e-5 against ~1e-3 after the scaling), so whole channels of D sit
+    together at a leaky-ReLU kink, and float32 noise in the fake pair moves
+    D's gradient by up to ~1e-3 of its norm: a fixture that tests no
+    program."""
+    import torch
+
+    net, D = make(dict(SMALL_TRAIN_CFG), SMALL_D_CFG, trunk_layers_n=8, seed=seed,
+                  device=device)
+    with torch.no_grad():
+        for k, p in net.generator.decoder.named_parameters():
+            if k.endswith("weight"):
+                p.mul_(10.0)
+    return net, D
+
+
+def b3_path_checks(torch, ps, card, tag, calls, gen):
+    """B3 (fp32) and its transpose against their plain versions, and timed, on
+    the two recorded `sample_planes_windowed_cvjp` calls (coarse, fine) of one
+    student render of a training path; returns {kernel: {pass: (max |k -
+    p|, ms, bound ms)}}."""
+    if len(calls) != 2:
+        fail(f"a student render made {len(calls)} B3 calls, expected 2 (coarse, fine)")
+    checks = {"plane_sample": {}, "plane_sample_transpose": {}}
+    with torch.no_grad():
+        for (args, _, out), label in zip(calls, ("coarse", "fine")):
+            planes, grid = args
+            N, H, W, C = planes.shape
+            what = f"student {label} {N // 3} item(s) S={grid.shape[2]}"
+            errs = b3_forward_check(torch, ps, tag, what, planes, grid, out)
+            cot = torch.randn((*grid.shape[:3], C), generator=gen, device=grid.device)
+            e_t = transpose_check(torch, ps, what, grid, cot, planes.shape, tag=tag)
+            f_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid), "sample_kernel<")
+            t_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
+                             "transpose_kernel(")
+            n_pts = grid.numel() // 2
+            # forward: grid and planes read, samples written; the transpose:
+            # grid and cotangent read, planes written; the same bytes and taps
+            b_ms, b_by = bound(grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4,
+                               n_pts * 4 * C * 2)
+            print(f"{tag} B3 {what}: planes {tuple(planes.shape)}, grid {tuple(grid.shape)}; "
+                  f"fp32 kernel {f_ms:.4f} ms, transpose kernel {t_ms:.4f} ms, bound of each "
+                  f"{b_ms:.4f} ms ({b_by}) on {card}")
+            checks["plane_sample"][label] = (errs[torch.float32], f_ms, b_ms)
+            checks["plane_sample_transpose"][label] = (e_t, t_ms, b_ms)
+    return checks
+
+
 @contextlib.contextmanager
 def timed_oneshot_phases(torch, li, ps, phases):
     """Time each phase of `make_oneshot_train_step`'s steps (host clock,
@@ -1121,7 +1223,6 @@ def oneshot_train_phases(torch, dev, card):
     import numpy as np
 
     from invertavatar_torch.flagship import oneshot_train_batch, oneshot_train_models
-    from invertavatar_torch.ops import fused_render as fr
     from invertavatar_torch.ops import plane_sample as ps
     from invertavatar_torch.ops.resize import resize_bilinear
     from invertavatar_torch.render import renderer as rmod
@@ -1138,37 +1239,11 @@ def oneshot_train_phases(torch, dev, card):
         return (a - b).abs().mean()
 
     # ---------------------------------------------------------------- phase 18
-    # the tests' tiny one-shot widths (channel_base 1024, channel_max 64, 32²
-    # neural render, 6+6 samples, tiny e4e trunk, full-width SegFormer
-    # U-Nets), rendering 256² through the 4X SR so that frames, renders and
-    # D share one resolution (Dreal scores the frames)
-    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=256, img_channels=3,
-                 rendering_kwargs={"superresolution_module": "x.SuperresolutionHybrid4X",
-                                   "c_gen_conditioning_zero": False, "c_scale": 1.0,
-                                   "superresolution_noise_mode": "none", "decoder_lr_mul": 1.0,
-                                   "sr_antialias": True, "depth_resolution": 6,
-                                   "depth_resolution_importance": 6, "box_warp": 1.0,
-                                   "det_stratified": True},
-                 neural_rendering_resolution=32, channel_base=1024, channel_max=64,
-                 map_num_layers=2)
-    d_cfg = dict(c_dim=25, img_resolution=256, img_channels=6, channel_base=1024,
-                 channel_max=64, num_fp16_res=0)
     schedule = [("Ireal", "tri", False), ("Dreal", "tri", True), ("Igen", "tex", False),
                 ("Dgen", "tex", False)]
 
     def small_models(seed, device):
-        """The phase's networks; the generator's decoder weights scaled by 10.
-        At N(0, 0.1) draws the tiny generator's raw render is flat (spatial
-        std ~2e-5 against ~1e-3 after the scaling), so whole channels of D sit
-        together at a leaky-ReLU kink, and float32 noise in the fake pair
-        moves D's gradient by up to ~1e-3 of its norm: a fixture that tests
-        no program."""
-        net, D = oneshot_train_models(small, d_cfg, trunk_layers_n=8, seed=seed, device=device)
-        with torch.no_grad():
-            for k, p in net.generator.decoder.named_parameters():
-                if k.endswith("weight"):
-                    p.mul_(10.0)
-        return net, D
+        return small_train_models(oneshot_train_models, seed, device)
 
     def run_routes(seed):
         """{route: {phase: (aux, gradients)}}, each phase from the same weights."""
@@ -1287,33 +1362,9 @@ def oneshot_train_phases(torch, dev, card):
         net({"image": b["image"], "uv": b["uv"]}, b["c"], b["v"],
             nograd_render=nograd_overrides("exact"), grad_render=grad_overrides("pallas"))
     torch.cuda.synchronize()
-    if len(calls) != 2:
-        fail(f"a student render made {len(calls)} B3 calls, expected 2 (coarse, fine)")
-    checks = {"plane_sample": {}, "plane_sample_transpose": {}}
-    gen = torch.Generator(device=dev).manual_seed(19)
-    with torch.no_grad():
-        for (args, _, out), label in zip(calls, ("coarse", "fine")):
-            planes, grid = args
-            N, H, W, C = planes.shape
-            tag = f"student {label} B={ONESHOT_BATCH} S={grid.shape[2]}"
-            errs = b3_forward_check(torch, ps, "[19]", tag, planes, grid, out)
-            cot = torch.randn((*grid.shape[:3], C), generator=gen, device=dev)
-            e_t = transpose_check(torch, ps, tag, grid, cot, planes.shape, tag="[19]")
-            f_ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid), "sample_kernel<")
-            t_ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
-                             "transpose_kernel(")
-            n_pts = grid.numel() // 2
-            # forward: grid and planes read, samples written; the transpose:
-            # grid and cotangent read, planes written; the same bytes and taps
-            b_ms, b_by = bound(grid.numel() * 4 + planes.numel() * 4 + n_pts * C * 4,
-                               n_pts * 4 * C * 2)
-            print(f"[19] B3 {tag}: planes {tuple(planes.shape)}, grid {tuple(grid.shape)}; fp32 "
-                  f"kernel {f_ms:.4f} ms, transpose kernel {t_ms:.4f} ms, bound of each "
-                  f"{b_ms:.4f} ms ({b_by}) on {card}")
-            checks["plane_sample"][label] = (errs[torch.float32], f_ms, b_ms)
-            checks["plane_sample_transpose"][label] = (e_t, t_ms, b_ms)
-            del cot
-    del calls, planes, grid, out
+    checks = b3_path_checks(torch, ps, card, "[19]", calls,
+                            torch.Generator(device=dev).manual_seed(19))
+    del calls
     snap = {"unets": {k: [p.detach().clone() for p in m.parameters()] for k, m in unets.items()},
             "D": [p.detach().clone() for p in D.parameters()]}
     moved, phases, aux_all = [], [], []
@@ -1330,8 +1381,7 @@ def oneshot_train_phases(torch, dev, card):
         snap["D"] = [p.detach().clone() for p in D.parameters()]
         aux_all.append({k: float(v) for k, v in aux.items()})
 
-    ps.sample_planes_windowed.launches = ps.windowed_sample_transpose.launches = 0
-    fr.fused_render.launches = fr.fused_merged_march.launches = 0
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as run_dir, \
@@ -1342,10 +1392,7 @@ def oneshot_train_phases(torch, dev, card):
                          fast_igen_target="exact", fast_grad="pallas", on_step=on_step,
                          device=dev)
         torch.cuda.synchronize()
-        launches = {"plane_sample": ps.sample_planes_windowed.launches,
-                    "plane_sample_transpose": ps.windowed_sample_transpose.launches,
-                    "fused_render": fr.fused_render.launches,
-                    "fused_merged_march": fr.fused_merged_march.launches}
+        launches = launch_counts()
         total_s = time.perf_counter() - t1
         snap_bytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in os.listdir(run_dir)
                          if f.startswith("snapshot-"))
@@ -1396,6 +1443,341 @@ def oneshot_train_phases(torch, dev, card):
     if launches != expect:
         fail(f"launches {launches} in {N_ONESHOT_TRAIN} one-shot steps, expected {expect}")
     del net, D, batches, snap, frozen0
+    return launches, checks
+
+
+KERNEL_COUNTERS = ("fused_render", "fused_merged_march", "plane_sample", "plane_sample_transpose")
+
+
+def launch_counts():
+    """The four kernels' launch counters, by their record names."""
+    from invertavatar_torch.ops import fused_render as fr
+    from invertavatar_torch.ops import plane_sample as ps
+
+    return dict(zip(KERNEL_COUNTERS, (fr.fused_render.launches, fr.fused_merged_march.launches,
+                                      ps.sample_planes_windowed.launches,
+                                      ps.windowed_sample_transpose.launches)))
+
+
+def reset_launch_counts():
+    from invertavatar_torch.ops import fused_render as fr
+    from invertavatar_torch.ops import plane_sample as ps
+
+    fr.fused_render.launches = fr.fused_merged_march.launches = 0
+    ps.sample_planes_windowed.launches = ps.windowed_sample_transpose.launches = 0
+
+
+def fewshot_expected(phase, T, Tc, route):
+    """Launches of B1, B2, B3 and the transpose in one few-shot phase, counted
+    from the code. No-grad renders (the clip's e4e renders, Igen's and D's
+    targets, D's fakes): with "fused", B1 and B2 once per frame; with
+    "exact", B3 twice (coarse, fine) per chunk's render call. Each
+    gradient-carrying frame (Ireal's Tc selected frames, Igen's T): with
+    "pallas", B3 twice and the transpose twice in its backward."""
+    nograd, grad = route
+    renders = {"Ireal": 1, "Igen": 2, "D": 3}[phase]  # no-grad renders of every frame
+    out = dict.fromkeys(KERNEL_COUNTERS, 0)
+    if nograd == "fused":
+        out["fused_render"] = out["fused_merged_march"] = renders * T
+    else:
+        out["plane_sample"] = 2 * renders * (T // Tc)
+    if grad == "pallas" and phase != "D":
+        n = Tc if phase == "Ireal" else T
+        out["plane_sample"] += 2 * n
+        out["plane_sample_transpose"] = 2 * n
+    return out
+
+
+@contextlib.contextmanager
+def timed_fewshot_phases(torch, li, phases):
+    """Time each phase of `train_fewshot`'s steps (host clock, synchronized)
+    and count its launches: appends (phase, T, do_r1, ms, launches) to
+    `phases`."""
+    orig_step, orig_d = li.make_fewshot_train_step, li.make_fewshot_d_step
+
+    def timed(name_of, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            n0 = launch_counts()
+            t0 = time.perf_counter()
+            aux = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            n1 = launch_counts()
+            phases.append((name_of(kwargs), args[-1]["c"].shape[1], kwargs.get("do_r1", False),
+                           (time.perf_counter() - t0) * 1e3, {k: n1[k] - n0[k] for k in n1}))
+            return aux
+        return run
+
+    def make_step(*args, **kwargs):
+        return timed(lambda kw: "Igen" if kw.get("do_igen") else "Ireal",
+                     orig_step(*args, **kwargs))
+
+    def make_d(*args, **kwargs):
+        return timed(lambda kw: "D", orig_d(*args, **kwargs))
+
+    li.make_fewshot_train_step, li.make_fewshot_d_step = make_step, make_d
+    try:
+        yield
+    finally:
+        li.make_fewshot_train_step, li.make_fewshot_d_step = orig_step, orig_d
+
+
+def fewshot_train_phases(torch, dev, card):
+    """Phases 20-21: the few-shot training step, small, on the card against
+    the `F.grid_sample` route and the CPU; then `train_fewshot` at flagship
+    width. Returns the kernels' launches in phase 21's `train_fewshot` run,
+    and {kernel: (max |k - p|, ms, bound ms)} of the four kernels at phase
+    21's own shapes (B3 and its transpose by render pass)."""
+    import tempfile
+
+    import numpy as np
+
+    from invertavatar_torch.flagship import fewshot_train_batch, fewshot_train_models
+    from invertavatar_torch.losses.lpips import LPIPS
+    from invertavatar_torch.ops import fused_render as fr
+    from invertavatar_torch.ops import plane_sample as ps
+    from invertavatar_torch.render import renderer as rmod
+    from invertavatar_torch.train import loop_inversion as li
+    from invertavatar_torch.train.fast_render import grad_overrides, nograd_overrides
+    from invertavatar_torch.train.inversion import InversionLossWeights
+    from invertavatar_torch.train.state import TrainState
+
+    # configs/train_fewshot.yaml: l1 1, lpips 1, raw_l1 1, tri 0.001, lr_lpips 1,
+    # adv 0.1, id 0
+    weights = InversionLossWeights(l1=1.0, lpips=1.0, id=0.0, raw_l1=1.0, tri=0.001,
+                                   lr_lpips=1.0, adv=0.1)
+
+    def l1(a, b):
+        return (a - b).abs().mean()
+
+    # ---------------------------------------------------------------- phase 20
+    # a 4-frame clip in chunks of 2 (one carried GRU state) through the tiny
+    # GRU network; LPIPS as the L1 distance (the CLI's fallback). Every phase
+    # from the same weights; Ireal trains the tri-plane decoder, Igen the
+    # texture decoder; D with R1 on seed 18, without on seed 28. Both card
+    # routes share B1/B2 for the no-grad renders, the grad-carrying render
+    # takes B3 + its transpose or `F.grid_sample`; the CPU runs the plain
+    # versions of the first route's kernels.
+    T_small, Tc_small = 4, 2
+    routes = (("card B3", dev, ("fused", "pallas")),
+              ("card grid_sample", dev, ("fused", "structured")),
+              ("CPU", torch.device("cpu"), ("fused", "pallas")))
+
+    def run_routes(seed):
+        net_cpu, d_cpu = small_train_models(fewshot_train_models, seed, "cpu")
+        sd0 = {k: v.clone() for k, v in net_cpu.state_dict().items()}
+        dsd0 = {k: v.clone() for k, v in d_cpu.state_dict().items()}
+        net_gpu, d_gpu = small_train_models(fewshot_train_models, seed, dev)
+        idx = li.fewshot_fake_idx(seed, 0, T_small, Tc_small)
+        phases = (("Ireal", li.fewshot_tri_trainable), ("Igen", li.fewshot_tex_trainable),
+                  ("D", None))
+        results = {}
+        for label, d, route in routes:
+            n, D = (net_cpu, d_cpu) if d.type == "cpu" else (net_gpu, d_gpu)
+            batch = fewshot_train_batch(1, T_small, 256, z_dim=32, seed=seed, device=d)
+            step = li.make_fewshot_train_step(n, l1, weights, Tc_small, *route)
+            d_step = li.make_fewshot_d_step(n, weights, Tc_small, route[0])
+            out = {}
+            for phase, pred in phases:
+                n.load_state_dict(sd0)
+                D.load_state_dict(dsd0)
+                n0 = launch_counts()
+                if phase == "D":
+                    aux = d_step(TrainState(D, torch.optim.Adam(D.parameters(), lr=1e-4)), batch,
+                                 do_r1=seed == 18)
+                    trained = D
+                else:
+                    aux = step(TrainState(n, li.masked_adam(n, 1e-4, pred)), batch,
+                               do_igen=phase == "Igen", multiT=True, fake_idx=idx, d_module=D)
+                    trained = n
+                if d.type != "cpu":
+                    torch.cuda.synchronize()
+                got = {k: v - n0[k] for k, v in launch_counts().items()}
+                want = (dict.fromkeys(KERNEL_COUNTERS, 0) if d.type == "cpu" else
+                        fewshot_expected(phase, T_small, Tc_small, route))
+                if got != want:
+                    fail(f"the small few-shot {phase} ({label}) launched {got}, expected {want}")
+                grads = {k: p.grad.detach().float().cpu() for k, p in trained.named_parameters()
+                         if p.grad is not None and p.requires_grad}
+                out[phase] = ({k: float(v) for k, v in aux.items()}, grads)
+            results[label] = out
+            print(f"[20] seed {seed}, {label} ({'/'.join(route)}): launches as counted from the "
+                  f"code")
+        return results
+
+    def compare(label, got, ref):
+        """Float32 on every side, TF32 off: the losses to 1e-3 relative
+        (+1e-7); the trained module's gradient (the scheduled decoder in the I
+        phases, D in the D phase) to 1e-3 of its norm, each entry to 1e-3 of
+        the largest entry (phase 18's bars)."""
+        for phase in ("Ireal", "Igen", "D"):
+            (aux, grads), (aux_r, grads_r) = got[phase], ref[phase]
+            bad = [k for k in aux_r if not (np.isfinite(aux[k]) and
+                                           abs(aux[k] - aux_r[k]) <= 1e-3 * abs(aux_r[k]) + 1e-7)]
+            norm = sum(g.square().sum() for g in grads_r.values()).sqrt().item()
+            rel = sum((grads[k] - grads_r[k]).square().sum()
+                      for k in grads_r).sqrt().item() / norm
+            scale = max(g.abs().max().item() for g in grads_r.values())
+            diffs = {k: (grads[k] - grads_r[k]).abs().max().item() / scale for k in grads_r}
+            print(f"[20] {label}, {phase}: " + " ".join(
+                f"{k}={aux[k]:.7g}/{aux_r[k]:.7g}" for k in sorted(aux_r)) +
+                f"; {len(grads_r)} gradients, |d| {rel:.3e} of their norm {norm:.3e} (< 1e-3); "
+                f"largest entry differences, of the largest entry {scale:.3e} (< 1e-3): " +
+                ", ".join(f"{k} {diffs[k]:.3e}" for k in sorted(diffs, key=diffs.get)[-3:]))
+            if sorted(aux) != sorted(aux_r) or bad or sorted(grads) != sorted(grads_r) \
+                    or not (norm > 0 and rel < 1e-3 and max(diffs.values()) < 1e-3):
+                fail(f"the small few-shot step, {label}, disagrees in {phase}: {bad}")
+
+    t0 = time.perf_counter()
+    for seed in (18, 28):
+        results = run_routes(seed)
+        compare(f"seed {seed}, card B3 vs CPU", results["card B3"], results["CPU"])
+        compare(f"seed {seed}, card grid_sample vs CPU", results["card grid_sample"],
+                results["CPU"])
+        compare(f"seed {seed}, card B3 vs card grid_sample", results["card B3"],
+                results["card grid_sample"])
+        del results
+    print(f"[20] small few-shot step checked on two seeds in {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- phase 21
+    t0 = time.perf_counter()
+    net, D = fewshot_train_models(seed=21, device=dev)
+    torch.manual_seed(21)
+    lpips = LPIPS("alex").to(dev).eval().requires_grad_(False)
+    with torch.no_grad():  # LPIPS's heads weigh squared differences: non-negative
+        for p in lpips.lin.parameters():
+            p.abs_()
+    clips = [fewshot_train_batch(FEWSHOT_TRAIN_BATCH, FEWSHOT_TRAIN_T, 512, seed=210 + i,
+                                 device=dev) for i in range(N_FEWSHOT_TRAIN)]
+    unets = {"tex": net.unet_encoder.texture_unet, "tri": net.unet_encoder.triplane_unet}
+
+    def decoder(m):
+        return [p for k, p in m.named_parameters() if not k.startswith(("input_layer", "body"))]
+
+    def trunk(m):
+        return [p for k, p in m.named_parameters() if k.startswith(("input_layer", "body"))]
+
+    frozen = {"generator": list(net.generator.parameters()),
+              "encoder": list(net.encoder.parameters()),
+              "tex trunk": trunk(unets["tex"]), "tri trunk": trunk(unets["tri"])}
+    frozen0 = {k: [p.detach().clone() for p in v] for k, v in frozen.items()}
+    torch.cuda.synchronize()
+    print(f"[21] few-shot training models built: U-Nets "
+          f"{sum(p.numel() for p in net.unet_encoder.parameters()) / 1e6:.1f} M (decoders "
+          f"{sum(p.numel() for m in unets.values() for p in decoder(m)) / 1e6:.1f} M), generator "
+          f"{sum(p.numel() for p in net.generator.parameters()) / 1e6:.1f} M, encoder "
+          f"{sum(p.numel() for p in net.encoder.parameters()) / 1e6:.1f} M, D "
+          f"{sum(p.numel() for p in D.parameters()) / 1e6:.1f} M parameters (float32 generator "
+          f"and U-Nets, 48+48 samples; D at 512², bf16 top 4 resolutions); "
+          f"{N_FEWSHOT_TRAIN} clips of {FEWSHOT_TRAIN_T} 512² frames in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the four kernels at this path's own shapes: one no-grad e4e render
+    # (fused) and one student render (pallas) of the first clip's first frame
+    b = clips[0]
+    b1_calls, b2_calls, b3_calls = [], [], []
+    with torch.no_grad():
+        ws = net.encode(b["image"][:, 0, :3])
+        tex, static = net.backbone_feats(ws)
+        with recording(rmod, "fused_render", b1_calls), \
+                recording(rmod, "fused_merged_march", b2_calls):
+            net.multiT_chunk_inputs(b["image"][:, :1], b["c"][:, :1],
+                                    {"uvcoords_image": b["v"]["uvcoords_image"][:, :1]},
+                                    b["uv"][:, :1], ws, tex, static,
+                                    nograd_render=nograd_overrides("fused"))
+        with recording(rmod, "sample_planes_windowed_cvjp", b3_calls):
+            net.generator.synthesis_withTexture(ws, tex, b["c"][:, 0], {
+                "uvcoords_image": b["v"]["uvcoords_image"][:, 0]}, static_feats=static,
+                noise_mode="const", rendering_overrides=grad_overrides("pallas"))
+    torch.cuda.synchronize()
+    if len(b1_calls) != 1 or len(b2_calls) != 1:
+        fail(f"a no-grad e4e render made {len(b1_calls)} B1 and {len(b2_calls)} B2 calls, "
+             "expected one each")
+    checks = {k["name"]: (k["max_abs_err"], k["ms"], k["bound_ms"]) for k in fused_kernel_checks(
+        torch, fr, card, "few-shot e4e render, 48+48", b1_calls[0], b2_calls[0], timed=True,
+        tags=("[21]", "[21]"))}
+    checks.update(b3_path_checks(torch, ps, card, "[21]", b3_calls,
+                                 torch.Generator(device=dev).manual_seed(21)))
+    del b1_calls, b2_calls, b3_calls, ws, tex, static
+
+    snap = {"dec": {k: [p.detach().clone() for p in decoder(m)] for k, m in unets.items()},
+            "D": [p.detach().clone() for p in D.parameters()]}
+    moved, phases, aux_all = [], [], []
+
+    def changed(old, params):
+        return any(not torch.equal(a, p) for a, p in zip(old, params))
+
+    def on_step(step_idx, cur_nimg, aux):
+        torch.cuda.synchronize()
+        moved.append({**{k: changed(snap["dec"][k], decoder(m)) for k, m in unets.items()},
+                      "D": changed(snap["D"], D.parameters())})
+        snap["dec"] = {k: [p.detach().clone() for p in decoder(m)] for k, m in unets.items()}
+        snap["D"] = [p.detach().clone() for p in D.parameters()]
+        aux_all.append({k: float(v) for k, v in aux.items()})
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as run_dir, timed_fewshot_phases(torch, li, phases):
+        cfg = li.InversionTrainConfig(run_dir=run_dir, batch_size=FEWSHOT_TRAIN_BATCH, lr=1e-4,
+                                      weights=weights)
+        li.train_fewshot(net, iter(clips), cfg, lpips, d_module=D, max_steps=N_FEWSHOT_TRAIN,
+                         multiT=FEWSHOT_CURRICULUM, frm_per_chunk=FEWSHOT_TC,
+                         fast_no_grad="fused", fast_grad="pallas", on_step=on_step, device=dev)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        total_s = time.perf_counter() - t1
+        snap_bytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in os.listdir(run_dir)
+                         if f.startswith("snapshot-"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sched = [li.fewshot_phase_schedule(i, FEWSHOT_CURRICULUM, cfg.wd_reg_interval)
+             for i in range(N_FEWSHOT_TRAIN)]
+    expect_phases = [(ph, T, r1 and ph == "D") for _, T, r1 in sched
+                     for ph in ("Ireal", "Igen", "D")]
+    if [p[:3] for p in phases] != expect_phases:
+        fail(f"train_fewshot ran the phases {[p[:3] for p in phases]}, expected {expect_phases}")
+    expect = dict.fromkeys(KERNEL_COUNTERS, 0)
+    step_ms = {}  # the second pass of the curriculum (steps 5-9), by T
+    for i, (unet, T, r1) in enumerate(sched):
+        run = phases[3 * i:3 * i + 3]
+        for ph, _, _, _, got in run:
+            want = fewshot_expected(ph, T, FEWSHOT_TC, ("fused", "pallas"))
+            if got != want:
+                fail(f"step {i} ({ph}, T={T}) launched {got}, expected {want}")
+            expect = {k: expect[k] + want[k] for k in expect}
+        ms = [p[3] for p in run]
+        if i >= 5:
+            step_ms.setdefault(T, []).append(sum(ms))
+        print(f"[21] step {i}: T={T}, {unet} decoder; Ireal {ms[0]:.3f} ms + Igen {ms[1]:.3f} "
+              f"ms + D{'+R1' if r1 else ''} {ms[2]:.3f} ms (host clock, synchronized); moved "
+              f"{moved[i]}; " + " ".join(f"{k}={v:.6g}" for k, v in aux_all[i].items()))
+        other = "tex" if unet == "tri" else "tri"
+        if not (moved[i][unet] and not moved[i][other] and moved[i]["D"]):
+            fail(f"step {i} trains the {unet} decoder and D: moved {moved[i]}")
+        if not all(np.isfinite(v) for v in aux_all[i].values()):
+            fail(f"step {i} gave a non-finite loss: {aux_all[i]}")
+    for k, params in frozen.items():
+        if changed(frozen0[k], params):
+            fail(f"the frozen {k} moved")
+    # the second pass of the curriculum (steps 5-9) is timed: first calls
+    # (cuDNN's algorithm choices, allocations) fall in the first
+    warm = phases[15:]
+    by_phase = {}
+    for ph, T, r1, ms, _ in warm:
+        by_phase.setdefault(f"{ph} T={T}", []).append(ms)
+    print(f"[21] few-shot training at flagship width, batch {FEWSHOT_TRAIN_BATCH}, 512²: "
+          f"{N_FEWSHOT_TRAIN} steps of `train_fewshot` (fused / pallas, curriculum "
+          f"{'/'.join(map(str, FEWSHOT_CURRICULUM))} in chunks of {FEWSHOT_TC}) in "
+          f"{total_s:.1f} s with the final snapshot "
+          f"({snap_bytes / 2 ** 30:.2f} GiB); second pass, ms/step by T: " +
+          ", ".join(f"T={T} {np.mean(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+                    for T, v in sorted(step_ms.items())) + "; per phase " +
+          ", ".join(f"{k} {np.mean(v):.3f}" for k, v in by_phase.items()) +
+          f" ms (host clock, synchronized); step 0's D with R1 {phases[2][3]:.3f} ms; peak "
+          f"memory {peak:.3f} GiB on {card}; launches {launches}, expected {expect}")
+    if launches != expect:
+        fail(f"launches {launches} in {N_FEWSHOT_TRAIN} few-shot steps, expected {expect}")
+    del net, D, clips, snap, frozen0, lpips
     return launches, checks
 
 
@@ -1558,8 +1940,10 @@ def main(argv=None):
                     "fused_merged_march": fr.fused_merged_march.launches}
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------ phases 18-19
+    # ------------------------------------------------------------ phases 18-21
     os_train_launches, os_train_checks = oneshot_train_phases(torch, dev, card)
+    torch.cuda.empty_cache()
+    fs_train_launches, fs_train_checks = fewshot_train_phases(torch, dev, card)
     for k in kernels:
         if k["name"] in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
@@ -1569,15 +1953,24 @@ def main(argv=None):
                                      "oneshot_invert": invert_launches[k["name"]],
                                      "oneshot_drive": os_drive_launches[k["name"]],
                                      "gan_train": gan_launches[k["name"]],
-                                     "oneshot_train": os_train_launches[k["name"]]}
+                                     "oneshot_train": os_train_launches[k["name"]],
+                                     "fewshot_train": fs_train_launches[k["name"]]}
+            # the check and time at the few-shot training path's shapes (48+48)
+            err, ms, b = fs_train_checks[k["name"]]
+            k.update(fewshot_train_max_abs_err=err, fewshot_train_ms=ms,
+                     fewshot_train_bound_ms=b)
         else:
             k["launches_by_path"] = {"e4e_train": k["launches"],
-                                     "oneshot_train": os_train_launches[k["name"]]}
-            # the checks and times at the one-shot training path's shapes
-            at = os_train_checks[k["name"]]
-            k["oneshot_train_max_abs_err"] = max(e for e, _, _ in at.values())
-            k["oneshot_train_ms"] = {label: ms for label, (_, ms, _) in at.items()}
-            k["oneshot_train_bound_ms"] = {label: b for label, (_, _, b) in at.items()}
+                                     "oneshot_train": os_train_launches[k["name"]],
+                                     "fewshot_train": fs_train_launches[k["name"]]}
+            # the checks and times at the one-shot and few-shot training
+            # paths' shapes (batch 2 and batch 1, S=48)
+            for path, checks in (("oneshot_train", os_train_checks),
+                                 ("fewshot_train", fs_train_checks)):
+                at = checks[k["name"]]
+                k[f"{path}_max_abs_err"] = max(e for e, _, _ in at.values())
+                k[f"{path}_ms"] = {label: ms for label, (_, ms, _) in at.items()}
+                k[f"{path}_bound_ms"] = {label: b for label, (_, _, b) in at.items()}
     print(f"[end] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

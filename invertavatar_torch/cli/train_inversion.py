@@ -4,15 +4,18 @@ Counterpart of `invertavatar_tpu/cli/train_inversion.py` (reference
 `encoder_inversion/train.py`), with the same flags. `--training_state`
 selects the stage: `e4e` trains the W+ encoder against the frozen generator
 of `--gen_pkl`; `oneshot` trains the SegFormer U-Nets (with a dual
-discriminator when the adversarial weight is on). `fewshot` waits for the
-few-shot slice (ROADMAP A11). LPIPS falls back to the mean L1 distance
-without `--lpips_weights`; the ID loss runs only with `--irse50`; both read
-torch state dicts by path (not in the repository). `--dry-run` prints the
-options and exits.
+discriminator when the adversarial weight is on); `fewshot` trains the
+ConvGRU U-Nets' decoders on clips of `--frm_per_vid` frames of one video
+(`<vid>/<frame>.png` under `--data`), over the {6, 12, 18} curriculum cut to
+the clip length, with the Igen phase on each batch's `z`. LPIPS falls back
+to the mean L1 distance without `--lpips_weights`; the ID loss runs only
+with `--irse50`; both read torch state dicts by path (not in the
+repository). `--dry-run` prints the options and exits. Training runs on
+CUDA unless `--device cpu` is given.
 
-    python -m invertavatar_torch.cli.train_inversion --outdir runs/oneshot \
+    python -m invertavatar_torch.cli.train_inversion --outdir runs/fewshot \
         --data DATA/images512x512 --gen_pkl ani3dgan512.pkl \
-        --training_state oneshot [--batch 2] [--device cuda]
+        --training_state fewshot [--batch 1] [--frm_per_vid 4] [--device cuda]
 """
 
 from __future__ import annotations
@@ -46,16 +49,14 @@ def main(argv=None):
     if args.dry_run:
         print(json.dumps(vars(args), indent=2))
         return
-    if args.training_state == "fewshot":
-        raise NotImplementedError("--training_state fewshot: the few-shot stage (VideoDataset, "
-                                  "run_seq, train_fewshot) is not ported yet (ROADMAP A11)")
-
     import numpy as np
     import torch
 
-    from ..data.dataset import AvatarDataset, InfiniteSampler, normalize_image, prefetch_batches
+    from ..data.dataset import (AvatarDataset, InfiniteSampler, VideoDataset, normalize_image,
+                                prefetch_batches)
     from ..models.encoders import InversionNet, LatentCodesDiscriminator, texture_out_channels_for
-    from ..train.loop_inversion import InversionTrainConfig, train_e4e, train_oneshot
+    from ..train.loop_inversion import (InversionTrainConfig, train_e4e, train_fewshot,
+                                        train_oneshot)
     from ..utils.checkpoint import load_reference_state, triplane_config_from_init_kwargs
     from ..utils.misc import resolve_device
     from ..utils.pkl_import import load_network_pkl
@@ -64,9 +65,10 @@ def main(argv=None):
     entry = load_network_pkl(args.gen_pkl)["G_ema"]
     gen_cfg = triplane_config_from_init_kwargs(entry["init_kwargs"])
     oneshot = args.training_state == "oneshot"
+    unets = args.training_state != "e4e"
     torch.manual_seed(args.seed)
     with torch.device(device):
-        net = InversionNet(gen_cfg, encoding_texture=oneshot, encoding_triplane=oneshot,
+        net = InversionNet(gen_cfg, encoding_texture=unets, encoding_triplane=unets,
                            unet_type="segformer" if oneshot else "gru",
                            texture_out_channels=texture_out_channels_for(
                                gen_cfg["channel_base"], gen_cfg["channel_max"]))
@@ -93,9 +95,25 @@ def main(argv=None):
 
     cfg = InversionTrainConfig(run_dir=args.outdir, total_kimg=args.kimg, batch_size=args.batch,
                                lr=args.lr, snapshot_ticks=args.snap_ticks, seed=args.seed)
+    nprng = np.random.RandomState(args.seed)
+    if args.training_state == "fewshot":
+        # clips of one video each; `z` drives the Igen phase
+        videos = VideoDataset(args.data, resolution=args.res, frm_per_vid=args.frm_per_vid)
+
+        def clips():
+            while True:
+                items = [videos.sample_clip(int(i), nprng)
+                         for i in nprng.randint(videos.num_videos, size=args.batch)]
+                yield {"image": np.stack([np.transpose(i["image"], (0, 3, 1, 2)) for i in items]),
+                       "c": np.stack([i["c"] for i in items]),
+                       "v": {"uvcoords_image": np.stack([i["uvcoords_image"] for i in items])},
+                       "uv": np.stack([np.transpose(i["uv"], (0, 3, 1, 2)) for i in items]),
+                       "z": nprng.randn(args.batch, gen_cfg["z_dim"]).astype(np.float32)}
+
+        train_fewshot(net, clips(), cfg, lpips_fn, max_steps=args.max_steps, device=device)
+        return
     dataset = AvatarDataset(args.data, resolution=args.res, load_uv=oneshot)
     sampler = InfiniteSampler(len(dataset), seed=args.seed)
-    nprng = np.random.RandomState(args.seed)
 
     def collate(items):
         batch = {"image": np.stack([np.transpose(normalize_image(i["image"]), (2, 0, 1))

@@ -14,9 +14,9 @@ host (PIL is imported where an image is read):
 
 Items are HWC numpy arrays (uint8 images, float32 the rest); the training
 loops scale images to [-1, 1] (`normalize_image`) and move batches to the
-device. `InfiniteSampler` gives each rank its share of a seeded shuffled
-stream; `prefetch_batches` assembles batches on a background thread.
-`VideoDataset` (the few-shot stage's clips) is not ported yet (ROADMAP A11).
+device. `VideoDataset` draws the few-shot stage's clips, frames of one video.
+`InfiniteSampler` gives each rank its share of a seeded shuffled stream;
+`prefetch_batches` assembles batches on a background thread.
 """
 
 from __future__ import annotations
@@ -117,6 +117,37 @@ class AvatarDataset:
         if self.load_uv:
             out["uv"] = self.get_uv(idx)
         return out
+
+
+class VideoDataset(AvatarDataset):
+    """Per-video frame sampling for the few-shot stage: the frames of a
+    video are the files under one top folder (`<vid>/<frame>.png`), in name
+    order; UV inputs are always loaded."""
+
+    def __init__(self, *args, frm_per_vid: int = 4, **kwargs):
+        super().__init__(*args, load_uv=True, **kwargs)
+        self.frm_per_vid = frm_per_vid
+        videos: Dict[str, List[int]] = {}
+        for idx, fname in enumerate(self.fnames):
+            videos.setdefault(fname.split("/")[0], []).append(idx)
+        self.videos = [sorted(v, key=lambda i: self.fnames[i]) for v in videos.values()]
+
+    @property
+    def num_videos(self) -> int:
+        return len(self.videos)
+
+    def sample_clip(self, vidx: int, rng: np.random.RandomState,
+                    T: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """T frames (default `frm_per_vid`) of video `vidx` drawn uniformly
+        with replacement: {"image" [T, H, W, 3] in [-1, 1], "c" [T, 25(+)],
+        "uvcoords_image" [T, 256, 256, 3], "uv" [T, 256, 256, 6]}."""
+        frames = self.videos[vidx]
+        picks = [frames[i] for i in rng.uniform(0.0, len(frames), size=T or self.frm_per_vid)
+                 .astype(np.int32)]
+        return {"image": np.stack([normalize_image(self._image(self.fnames[i])) for i in picks]),
+                "c": np.stack([self.get_label(i) for i in picks]).astype(np.float32),
+                "uvcoords_image": np.stack([self.get_vert(i)["uvcoords_image"] for i in picks]),
+                "uv": np.stack([self.get_uv(i) for i in picks])}
 
 
 class InfiniteSampler:

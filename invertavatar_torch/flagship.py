@@ -163,25 +163,23 @@ def init_flagship(G: TriPlaneGenerator, seed: int = 0) -> TriPlaneGenerator:
     return G
 
 
-def oneshot_train_models(generator_cfg=None, d_cfg=None, trunk_layers_n: int = 50,
-                         seed: int = 0, device="cuda"):
-    """The one-shot training stage's networks on `device` (CUDA by default):
-    `oneshot_inversion_net` over the float32 flagship generator with the
-    reference's 48+48 training samples (unless `generator_cfg` is given),
-    and a `DualDiscriminator` (`d_cfg`; default: at the generator's
+def training_generator_config() -> dict:
+    """The float32 flagship generator with the reference's 48+48 training
+    samples: the inversion stages' frozen generator."""
+    cfg = flagship_config(num_fp16_res=0, sr_num_fp16_res=0)
+    cfg["rendering_kwargs"].update(depth_resolution=48, depth_resolution_importance=48)
+    return cfg
+
+
+def training_discriminator(generator_cfg, d_cfg=None, seed: int = 0, device="cuda"):
+    """A `DualDiscriminator` (`d_cfg`; default: at the generator's
     resolution, 6 channels, the flagship widths with bf16 top four
     resolutions) with torch's initialisation after `torch.manual_seed(seed)`
     and seeded N(0, 0.1) draws added to its 1-D parameters: with zero biases
-    and the stage's zero cameras, its camera map and every logit are 0.
-    Returns (net, D)."""
+    and the inversion stages' zero cameras, its camera map and every logit
+    are 0."""
     from .models.discriminator import DualDiscriminator
 
-    if generator_cfg is None:
-        generator_cfg = flagship_config(num_fp16_res=0, sr_num_fp16_res=0)
-        generator_cfg["rendering_kwargs"].update(depth_resolution=48,
-                                                 depth_resolution_importance=48)
-    net = oneshot_inversion_net(generator_cfg, trunk_layers_n=trunk_layers_n, seed=seed,
-                                device=device)
     d_cfg = d_cfg or dict(c_dim=generator_cfg["c_dim"],
                           img_resolution=generator_cfg["img_resolution"], img_channels=6)
     torch.manual_seed(seed)
@@ -191,7 +189,31 @@ def oneshot_train_models(generator_cfg=None, d_cfg=None, trunk_layers_n: int = 5
         for p in D.parameters():
             if p.ndim == 1:
                 p.add_(torch.from_numpy((npr.standard_normal(p.shape) * 0.1).astype(np.float32)))
-    return net, D.to(resolve_device(device))
+    return D.to(resolve_device(device))
+
+
+def oneshot_train_models(generator_cfg=None, d_cfg=None, trunk_layers_n: int = 50,
+                         seed: int = 0, device="cuda"):
+    """The one-shot training stage's networks on `device` (CUDA by default):
+    `oneshot_inversion_net` over `training_generator_config()` (unless
+    `generator_cfg` is given) and `training_discriminator(d_cfg)`. Returns
+    (net, D)."""
+    generator_cfg = generator_cfg or training_generator_config()
+    net = oneshot_inversion_net(generator_cfg, trunk_layers_n=trunk_layers_n, seed=seed,
+                                device=device)
+    return net, training_discriminator(generator_cfg, d_cfg, seed=seed, device=device)
+
+
+def fewshot_train_models(generator_cfg=None, d_cfg=None, trunk_layers_n: int = 50,
+                         seed: int = 0, device="cuda"):
+    """The few-shot training stage's networks on `device` (CUDA by default):
+    `fewshot_inversion_net` over `training_generator_config()` (unless
+    `generator_cfg` is given) with both ConvGRU U-Nets in float32 (they
+    train), and `training_discriminator(d_cfg)`. Returns (net, D)."""
+    generator_cfg = generator_cfg or training_generator_config()
+    net = fewshot_inversion_net(generator_cfg, trunk_layers_n=trunk_layers_n, seed=seed,
+                                unet_eval_dtype=None, device=device)
+    return net, training_discriminator(generator_cfg, d_cfg, seed=seed, device=device)
 
 
 def oneshot_train_batch(batch: int, res: int, z_dim: int = 512, seed: int = 0, device="cuda"):
@@ -208,3 +230,32 @@ def oneshot_train_batch(batch: int, res: int, z_dim: int = 512, seed: int = 0, d
     return {"image": torch.from_numpy(img).to(device), "c": torch.from_numpy(c).to(device),
             "v": {"uvcoords_image": torch.from_numpy(uvc).to(device)}, "uv": uv, "gen_uv": uv,
             "z": torch.from_numpy(z[:, :z_dim]).to(device)}
+
+
+def fewshot_train_batch(batch: int, T: int, res: int, z_dim: int = 512, seed: int = 0,
+                        device="cuda"):
+    """A seeded few-shot training clip batch on `device`: frames [B, T, 4,
+    res, res], RGB uniform in [-1, 1] and `example_inputs`' face region as
+    the head mask; cameras [B, T, 25] turning ±0.1 rad about the frontal
+    one; their uvcoords [B, T, 256, 256, 3]; the UV inputs [B, T, 6, 256,
+    256] (a seeded UV texture per frame beside the UV vertex image) and z
+    [B, z_dim]."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    z, _, uvc = example_inputs(batch, seed=seed)
+    yaw = np.pi / 2 + 0.1 * np.sin(np.arange(T) * 0.7)
+    K = fov_to_intrinsics(18.837).numpy().reshape(9)
+    c = np.stack([np.concatenate([lookat_camera_pose(None, y, np.pi / 2, [0.0, 0.0, 0.2],
+                                                     radius=2.7).numpy().reshape(16), K])
+                  for y in yaw]).astype(np.float32)
+    near = np.arange(res) * 256 // res
+    mask = uvc[0, :, :, 2][near][:, near]
+    img = rng.uniform(-1, 1, (batch, T, 4, res, res)).astype(np.float32)
+    img[:, :, 3] = mask
+    uv = np.concatenate([rng.uniform(-1, 1, (batch, T, 256, 256, 3)),
+                         np.broadcast_to(uvc[:, None], (batch, T, 256, 256, 3))], axis=-1)
+    uv = np.ascontiguousarray(uv.transpose(0, 1, 4, 2, 3), np.float32)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)  # noqa: E731
+    return {"image": t(img), "c": t(np.broadcast_to(c[None], (batch, T, 25))),
+            "v": {"uvcoords_image": t(np.broadcast_to(uvc[:, None], (batch, T, 256, 256, 3)))},
+            "uv": t(uv), "z": t(z[:, :z_dim])}

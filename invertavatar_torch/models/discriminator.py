@@ -12,7 +12,7 @@ resolutions compute in bfloat16 (the JAX package's `dtype_fp16`) unless
 reference (`b512.fromrgb`, `b4.fc`, `mapping.embed`, ...). The blocks are
 the reference's "resnet" architecture, the one every shipped configuration
 uses (the JAX package's "skip" and "orig" variants have no caller). The video
-discriminators are not ported yet (ROADMAP A11).
+discriminators are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -69,7 +69,11 @@ class DiscriminatorBlock(nn.Module):
 
 class MinibatchStdLayer(nn.Module):
     """Appends `num_channels` channels of the feature std over groups of
-    `group_size` items (the batch index b = g·n + i)."""
+    `group_size` items (the batch index b = g·n + i), or of the largest size
+    below it that divides the batch. The JAX package's layer (and the
+    reference's) takes min(group_size, batch) and fails where that does not
+    divide the batch, as in the few-shot D phase at batch 1, which scores 6
+    or 18 frames; where it runs, the two agree."""
 
     def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
         super().__init__()
@@ -78,7 +82,8 @@ class MinibatchStdLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         N, C, H, W = x.shape
-        G = min(self.group_size, N) if self.group_size is not None else N
+        G = N if self.group_size is None else next(
+            g for g in range(min(self.group_size, N), 0, -1) if N % g == 0)
         F = self.num_channels
         y = x.float().reshape(G, -1, F, C // F, H, W)
         y = y - y.mean(dim=0)

@@ -10,14 +10,18 @@ the SegFormer decoders of the improved one-shot network
 single-frame `forward` invert one frame (the one-shot path of
 `cli/eval_os.py`); `ar_forward` absorbs a chunk of source frames into the
 avatar's features, carrying the GRU states across chunks (the streaming
-few-shot path of `cli/eval_seq.py`).
+few-shot path of `cli/eval_seq.py`). The few-shot training rollouts are
+`run_seq` (every frame at once) and `run_seq_multiT` (chunks whose GRU states
+carry forward without gradient), built from the blocks `backbone_feats`,
+`multiT_chunk_inputs`, `multiT_chunk_state`, `multiT_offsets` and
+`multiT_final`; the few-shot training step (`train/loop_inversion.py`) runs
+the blocks itself.
 
 Unlike the JAX package, whose modules make no variables until they run, the
 port builds the U-Nets only when `encoding_texture` / `encoding_triplane` ask
-for them (the e4e stage holds none). The one-shot training step
-(`train/loop_inversion.py`) drives `prefix` and `forward` with its render
-overrides. Not ported yet: the few-shot training rollouts `run_seq` and
-`run_seq_multiT` (ROADMAP A11).
+for them (the e4e stage holds none). The one-shot training step drives
+`prefix` and `forward` with its render overrides. The U-Nets train in
+float32: `unet_eval_dtype` is read by `ar_forward` alone.
 """
 
 from __future__ import annotations
@@ -34,7 +38,19 @@ from .e4e import Encoder4Editing
 from .irse import store_weights_in
 from .unet_encoders import TriPlanefeatEncoder, TriPlaneSFTfeatEncoder, adaptive_avg_pool
 
-__all__ = ["InversionNet", "UnetEncoderPair", "adaptive_avg_pool", "texture_out_channels_for"]
+__all__ = ["InversionNet", "UnetEncoderPair", "adaptive_avg_pool", "offset_feats",
+           "texture_out_channels_for"]
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, ...] -> [B·T, ...], b-major."""
+    return x.reshape(-1, *x.shape[2:])
+
+
+def offset_feats(tex: List[torch.Tensor], offsets: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The texture pyramid with the texture U-Net's offsets added to its
+    first taps."""
+    return [f + o for f, o in zip(tex, offsets)] + list(tex[len(offsets):])
 
 
 def texture_out_channels_for(channel_base: int, channel_max: int) -> Tuple[int, int, int, int]:
@@ -177,7 +193,7 @@ class InversionNet(nn.Module):
         else:
             tex_offsets = self.unet_encoder.texture_unet(uv_input)
             sft = self.unet_encoder.triplane_unet(tri_input)
-        texture_feats = [f + o for f, o in zip(tex, tex_offsets)] + list(tex[len(tex_offsets):])
+        texture_feats = offset_feats(tex, tex_offsets)
         static_feats = G.backbone.synthesis(ws, return_list=True, feat_conditions=sft,
                                             noise_mode="const")
         out = G.synthesis_withTexture(ws, texture_feats, cam, v, static_feats=static_feats,
@@ -188,6 +204,151 @@ class InversionNet(nn.Module):
             out["static"] = static_feats
         out["w"] = ws
         out["e4e_image"] = e4e_image
+        return out
+
+    # ------------------------------------------------------------ train rollouts
+    #
+    # The reference's multi-T rollout runs its whole chunk loop without
+    # gradient, the last chunk's e4e render and U-Net inputs included; only
+    # the last U-Net calls, the backbone pass with the SFT conditions and the
+    # render carry gradients. The blocks below are those pieces; frames are
+    # [B, T, 3(+mask), H, W], cameras [B, T, 25], uvcoords [B, T, 256, 256,
+    # 3] and UV inputs [B, T, 6, 256, 256]. The rollouts take the ConvGRU
+    # U-Nets (`unet_type="gru"`).
+
+    def backbone_feats(self, ws: torch.Tensor):
+        """The frozen generator's (texture, static) feature lists of `ws`."""
+        G = self.generator
+        return (G.texture_backbone.synthesis(ws, return_list=True, noise_mode="const"),
+                G.backbone.synthesis(ws, return_list=True, noise_mode="const"))
+
+    def render_clip(self, ws, tex, static, c, v, **kw) -> Dict[str, torch.Tensor]:
+        """Render every frame of a clip: the item's codes and feature lists
+        repeated over its T frames (b-major); c [B, T, 25], v
+        {"uvcoords_image": [B, T, ...]}; `kw` goes to
+        `synthesis_withTexture`. Returns its dict with [B·T, ...] leaves."""
+        T = c.shape[1]
+
+        def rep(x):
+            return x.repeat_interleave(T, dim=0)
+
+        return self.generator.synthesis_withTexture(
+            rep(ws), [rep(f) for f in tex], _flat(c),
+            {"uvcoords_image": _flat(v["uvcoords_image"])}, static_feats=[rep(f) for f in static],
+            noise_mode="const", **kw)
+
+    def _clip_inputs(self, frames, uv, e4e_img):
+        """The U-Nets' inputs from a clip's frames [B, T, 3(+m), H, W], UV
+        inputs and flat e4e render: ([B, T, 7, 256, 256], [B, T, 6, H, W],
+        the e4e render at the frames' size)."""
+        B, T = frames.shape[:2]
+        frames_flat = _flat(frames)
+        if e4e_img.shape[2] != frames_flat.shape[2]:
+            e4e_img = resize_bilinear(e4e_img, tuple(frames_flat.shape[2:]), antialias=True)
+        delta = e4e_img - frames_flat[:, :3]
+        uv_input = self.get_unet_uvinput(_flat(uv), delta).reshape(B, T, 7, 256, 256)
+        tri_input = torch.cat([frames_flat[:, :3], delta], dim=1).reshape(
+            B, T, 6, *frames_flat.shape[2:])
+        return uv_input, tri_input, e4e_img
+
+    def _unets(self, uv_input, tri_input, r_tex=None, r_tri=None):
+        tex_offsets, r_tex = self.unet_encoder.texture_unet(uv_input, r_tex)
+        sft, r_tri = self.unet_encoder.triplane_unet(tri_input, r_tri)
+        return tex_offsets, sft, r_tex, r_tri
+
+    @torch.no_grad()
+    def multiT_chunk_inputs(self, frames, c, v, uv, ws, tex, static,
+                            nograd_render: Optional[Dict] = None,
+                            generator: Optional[torch.Generator] = None):
+        """One chunk's U-Net inputs, without gradient: the e4e render of the
+        chunk's Tc frames, Δx, then (uv_input [B, Tc, 7, 256, 256], tri_input
+        [B, Tc, 6, H, W], the e4e render [B·Tc, 3, H, W]). `nograd_render`
+        (a `train/fast_render` override dict) makes the render an evaluation
+        render with those overrides."""
+        e4e = self.render_clip(ws, tex, static, c, v, evaluation=nograd_render is not None,
+                               rendering_overrides=nograd_render, generator=generator)["image"]
+        return self._clip_inputs(frames, uv, e4e)
+
+    @torch.no_grad()
+    def multiT_chunk_state(self, uv_input, tri_input, r_tex=None, r_tri=None):
+        """Roll both U-Nets' GRU states over one chunk, without gradient:
+        (texture states, triplane states)."""
+        return self._unets(uv_input, tri_input, r_tex, r_tri)[2:]
+
+    def multiT_offsets(self, uv_input, tri_input, r_tex, r_tri, ws):
+        """The gradient-carrying suffix up to the render: both U-Nets from
+        the carried states, then the static backbone under their SFT
+        conditions. Returns (texture offsets, static feature list)."""
+        tex_offsets, sft, _, _ = self._unets(uv_input, tri_input, r_tex, r_tri)
+        static_feats = self.generator.backbone.synthesis(ws, return_list=True,
+                                                         feat_conditions=sft, noise_mode="const")
+        return tex_offsets, static_feats
+
+    def multiT_final(self, uv_input, tri_input, r_tex, r_tri, ws, tex, c_sel, v_sel,
+                     grad_render: Optional[Dict] = None,
+                     generator: Optional[torch.Generator] = None):
+        """`multiT_offsets`, then one render of the selected frames (c_sel
+        [B, T_out, 25], v_sel likewise) with the overrides `grad_render`.
+        Returns the render's dict ([B·T_out, ...] leaves)."""
+        tex_offsets, static_feats = self.multiT_offsets(uv_input, tri_input, r_tex, r_tri, ws)
+        return self.render_clip(ws, offset_feats(tex, tex_offsets), static_feats, c_sel, v_sel,
+                                rendering_overrides=grad_render, generator=generator)
+
+    def run_seq_multiT(self, vid_frames, vid_c, vid_v, vid_uv, frm_per_chunk: int = 6,
+                       ws: Optional[torch.Tensor] = None, return_idx=None,
+                       generator: Optional[torch.Generator] = None):
+        """Chunked multi-T rollout: T = n·frm_per_chunk frames; chunks
+        0..n-2 roll the GRU states forward without gradient, the last chunk's
+        U-Net calls and the render carry gradients. `return_idx` (frame
+        indices shared by the batch) renders only those frames; None renders
+        all T. Returns {"image" [B, T_out, 3, H', W'], "e4e_image" (the last
+        chunk's), "feature_image", "triplane"}."""
+        B, T = vid_c.shape[:2]
+        assert T % frm_per_chunk == 0, (T, frm_per_chunk)
+        n, Tc = T // frm_per_chunk, frm_per_chunk
+        uvi = vid_v["uvcoords_image"]
+        with torch.no_grad():
+            if ws is None:
+                ws = self.encode(vid_frames[:, 0, :3])
+            tex, static = self.backbone_feats(ws)
+        r_tex = r_tri = None
+        for i in range(n):
+            sl = slice(i * Tc, (i + 1) * Tc)
+            uv_input, tri_input, e4e_last = self.multiT_chunk_inputs(
+                vid_frames[:, sl], vid_c[:, sl], {"uvcoords_image": uvi[:, sl]}, vid_uv[:, sl],
+                ws, tex, static, generator=generator)
+            if i < n - 1:
+                r_tex, r_tri = self.multiT_chunk_state(uv_input, tri_input, r_tex, r_tri)
+        if return_idx is None:
+            c_sel, v_sel = vid_c, {"uvcoords_image": uvi}
+        else:
+            idx = torch.as_tensor(return_idx, device=vid_c.device)
+            c_sel, v_sel = vid_c[:, idx], {"uvcoords_image": uvi[:, idx]}
+        out = self.multiT_final(uv_input, tri_input, r_tex, r_tri, ws, tex, c_sel, v_sel,
+                                generator=generator)
+        return {"image": out["image"].reshape(B, c_sel.shape[1], *out["image"].shape[1:]),
+                "e4e_image": e4e_last, "feature_image": out["feature_image"],
+                "triplane": out["triplane"]}
+
+    def run_seq(self, vid_frames, vid_c, vid_v, vid_uv, ws: Optional[torch.Tensor] = None,
+                only_image: bool = False, generator: Optional[torch.Generator] = None):
+        """The literal recurrent rollout: the e4e render of all T frames
+        without gradient, both U-Nets over the whole clip, one render of
+        every frame with the refined features (gradient-carrying). Returns
+        the render's dict ([B·T, ...] leaves) with "e4e_image", or with
+        `only_image` just {"image", "e4e_image"}."""
+        with torch.no_grad():
+            if ws is None:
+                ws = self.encode(vid_frames[:, 0, :3])
+            tex, static = self.backbone_feats(ws)
+            e4e = self.render_clip(ws, tex, static, vid_c, vid_v, generator=generator)["image"]
+            uv_input, tri_input, e4e = self._clip_inputs(vid_frames, vid_uv, e4e)
+        tex_offsets, static_feats = self.multiT_offsets(uv_input, tri_input, None, None, ws)
+        out = self.render_clip(ws, offset_feats(tex, tex_offsets), static_feats, vid_c, vid_v,
+                               generator=generator)
+        if only_image:
+            return {"image": out["image"], "e4e_image": e4e}
+        out["e4e_image"] = e4e
         return out
 
     def ar_forward(self, x: Dict[str, torch.Tensor], vid_c: torch.Tensor,
@@ -246,7 +407,7 @@ class InversionNet(nn.Module):
             # states stay in dt (they only feed the next chunk's cells)
             tex_offsets = [o.float() for o in tex_offsets]
             sft = {k: (a.float(), b.float()) for k, (a, b) in sft.items()}
-        texture_feats = [f + o for f, o in zip(tex, tex_offsets)] + list(tex[len(tex_offsets):])
+        texture_feats = offset_feats(tex, tex_offsets)
         static_feats = G.backbone.synthesis(ws, return_list=True, feat_conditions=sft,
                                             noise_mode="const")
         updated = {"w": ws, "texture": texture_feats, "static": static_feats}

@@ -4,7 +4,9 @@ Counterpart of the e4e and one-shot sections of
 `invertavatar_tpu/train/inversion.py`: phases Ireal / Igen / Ireal_novel on
 the W+ encoder against the frozen generator, and the latent discriminator's
 loss with R1 on w; the one-shot U-Net stage's Ireal / Igen phases and its
-dual discriminator's loss with R1 on both images. Each phase is a
+dual discriminator's loss with R1 on both images; the few-shot stage's
+clip losses (Igen's feature supervision, Ireal on a frame selection with
+the head-mask composite, and their per-frame form). Each phase is a
 function of callables, so tests can drive it with mocks. Where JAX wraps a
 target in `stop_gradient`, the port computes it under `torch.no_grad()`.
 """
@@ -248,3 +250,109 @@ def oneshot_d_loss(d_apply: Callable, fake_img, real_img, c, weights: InversionL
         total = total + weights.adv_r1_gamma / 2 * r1
         aux["d_r1"] = r1
     return total, aux
+
+
+# ---------------------------------------------------------------- few-shot stage
+
+
+def fewshot_feature_losses(i_out, gen_out, lpips: Callable, weights: InversionLossWeights,
+                           d_apply: Optional[Callable] = None):
+    """Igen's terms on flat [B·T, ...] renders: the images' l1 / lpips after
+    the 256² resize, raw_l1 / tri / lr_lpips against the frozen generator's
+    target `gen_out` (no gradient), and the adversarial term when `adv > 0`
+    and `d_apply(pair)` (the dual discriminator, cameras zeroed) is given."""
+    losses = {}
+    if weights.adv > 0 and d_apply is not None:
+        logits = d_apply({"image": i_out["image"], "image_raw": i_out["feature_image"][:, :3]})
+        losses["adv"] = torch.mean(F.softplus(-logits))
+    gen256, i256 = _to256(gen_out["image"][:, :3]), _to256(i_out["image"])
+    if weights.l1 > 0:
+        losses["l1"] = torch.mean(torch.abs(gen256 - i256))
+    if weights.lpips > 0:
+        losses["lpips"] = lpips(gen256, i256)
+    if weights.raw_l1 > 0:
+        losses["raw_l1"] = torch.mean(torch.abs(gen_out["feature_image"] - i_out["feature_image"]))
+    if weights.tri > 0:
+        losses["tri"] = torch.mean(torch.abs(gen_out["triplane"] - i_out["triplane"]))
+    if weights.lr_lpips > 0:
+        losses["lr_lpips"] = lpips(gen_out["feature_image"][:, :3], i_out["feature_image"][:, :3])
+    return _total(weights, losses), losses
+
+
+def fewshot_igen_loss(inv_run_seq: Callable, gen_mapping: Callable, gen_synth_with_feats: Callable,
+                      gen_tex_feats: Callable, gen_static_feats: Callable, lpips: Callable,
+                      weights: InversionLossWeights, z, vid_c, vid_v, vid_uv):
+    """Igen: a synthetic clip of the frozen generator (ψ 0.6, the first
+    frame's camera), inverted by `inv_run_seq(frames, c, v, uv, ws)` and
+    supervised feature by feature."""
+    B, T = vid_c.shape[:2]
+    with torch.no_grad():
+        ws = gen_mapping(z, vid_c[:, 0], truncation_psi=0.6)
+        gen_out = gen_synth_with_feats(ws, gen_tex_feats(ws), gen_static_feats(ws), vid_c, vid_v)
+    frames = gen_out["image"].reshape(B, T, *gen_out["image"].shape[1:])
+    i_out = inv_run_seq(frames, vid_c, vid_v, vid_uv, None)
+    return fewshot_feature_losses(i_out, gen_out, lpips, weights)
+
+
+def _image_terms(real, fake, lpips, weights):
+    real256, fake256 = _to256(real), _to256(fake)
+    losses = {}
+    if weights.l1 > 0:
+        losses["l1"] = torch.mean(torch.abs(real256 - fake256))
+    if weights.lpips > 0:
+        losses["lpips"] = lpips(real256, fake256)
+    return _total(weights, losses), losses
+
+
+def fewshot_image_losses(fake, real, lpips: Callable, weights: InversionLossWeights):
+    """Ireal's terms on a rendered selection fake [B, Tc, 3, h, w] against
+    the matching real frames [B, Tc, 3(+mask), H, W]: the first selected
+    frame whole, the later ones composited onto the real background through
+    the head mask when there is one."""
+    B, Tc = fake.shape[:2]
+    H, W = real.shape[3:]
+    if fake.shape[3] != H:
+        fake = resize_bilinear(fake.reshape(B * Tc, *fake.shape[2:]), (H, W)).reshape(
+            B, Tc, -1, H, W)
+    if real.shape[2] > 3 and Tc > 1:
+        mask = real[:, 1:, -1:]
+        later = fake[:, 1:] * mask + real[:, 1:, :3] * (1.0 - mask)
+        fake = torch.cat([fake[:, :1], later], dim=1)
+    return _image_terms(real[:, :, :3].reshape(B * Tc, 3, H, W), fake.reshape(B * Tc, -1, H, W),
+                        lpips, weights)
+
+
+def fewshot_image_loss_frame(fake, real, lpips: Callable, weights: InversionLossWeights,
+                             masked: bool):
+    """`fewshot_image_losses` of one frame (fake [B, 3, h, w], real [B,
+    3(+mask), H, W]); `masked` composites through the head mask (the later
+    selected frames). Every term is a mean over equal frames, so the clip's
+    loss is the mean of these."""
+    if fake.shape[2] != real.shape[2]:
+        fake = resize_bilinear(fake, tuple(real.shape[2:]))
+    if masked and real.shape[1] > 3:
+        mask = real[:, -1:]
+        fake = fake * mask + real[:, :3] * (1.0 - mask)
+    return _image_terms(real[:, :3], fake, lpips, weights)
+
+
+def fewshot_ireal_multiT_loss(inv_run_multiT: Callable, lpips: Callable,
+                              weights: InversionLossWeights, vid_frames, vid_c, vid_v, vid_uv,
+                              fake_idx, ws=None):
+    """Ireal under the multi-T curriculum: `inv_run_multiT(frames, c, v, uv,
+    fake_idx, ws)` rolls over all T frames and renders the `fake_idx`
+    selection (frame 0 first), which the loss compares with those frames."""
+    out = inv_run_multiT(vid_frames[:, :, :3], vid_c, vid_v, vid_uv, fake_idx, ws)
+    real = vid_frames[:, torch.as_tensor(fake_idx, device=vid_frames.device)]
+    return fewshot_image_losses(out["image"], real, lpips, weights)
+
+
+def fewshot_ireal_loss(inv_run_seq: Callable, lpips: Callable, weights: InversionLossWeights,
+                       vid_frames, vid_c, vid_v, vid_uv, ws=None):
+    """Ireal on a real clip [B, T, 3(+mask), H, W] through the literal
+    rollout `inv_run_seq(frames, c, v, uv, ws)`: the first frame whole, the
+    later ones through the head mask."""
+    B, T = vid_c.shape[:2]
+    i_out = inv_run_seq(vid_frames[:, :, :3], vid_c, vid_v, vid_uv, ws)
+    fake = i_out["image"].reshape(B, T, *i_out["image"].shape[1:])
+    return fewshot_image_losses(fake, vid_frames, lpips, weights)

@@ -1,14 +1,18 @@
-"""Inversion training stages e4e and one-shot: optimizers, steps and drivers.
+"""Inversion training stages: optimizers, steps and training loops.
 
-Counterpart of the e4e and one-shot parts of
-`invertavatar_tpu/train/loop_inversion.py`:
+Counterpart of `invertavatar_tpu/train/loop_inversion.py`:
   * e4e: train `Encoder4Editing` against the frozen generator with the Ireal
     and Igen phases, plus the latent discriminator (WD) when
     `w_discriminator > 0`;
   * one-shot: train one of the two U-Nets of a (SegFormer) `InversionNet`
     per step, by the reference's interval schedule, with the Ireal / Igen
     phases and the dual discriminator's Dreal / Dgen phases (R1 every
-    `wd_reg_interval` steps) when `adv > 0`.
+    `wd_reg_interval` steps) when `adv > 0`;
+  * few-shot: train one ConvGRU U-Net's decoder per step (tri-plane on
+    even steps, texture on odd; trunks, e4e and generator frozen) over clips
+    whose length follows the {6, 12, 18} curriculum, with the Ireal and Igen
+    phases through the chunked rollout and carried GRU states, and the dual
+    discriminator's phase on a synthetic clip when `adv > 0`.
 
 JAX expresses the freeze as an optax mask and returns new states; here
 `masked_adam` freezes every parameter outside the trainable subtree
@@ -17,7 +21,9 @@ codes) and a step updates the modules and optimizers in place. The JAX
 step's "programs" (grad Ireal, grad Igen, one update) become `backward()`
 calls accumulating into one Adam step; no-grad renders run under
 `torch.no_grad()`. The JAX options that only steer XLA's memory plan
-(`remat`, `donate`, `grad_subtree`, `subtree_tx`) have no counterpart.
+(`remat`, `donate`, `grad_subtree`, `subtree_tx`) have no counterpart, nor
+has the few-shot stage's split into jitted programs (`FewshotPrograms`); its
+memory plan stays: one gradient-carrying render alive at a time.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from ..models.encoders.uvnet import offset_feats
 from ..ops.resize import resize_bilinear
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.misc import resolve_device, to_device
@@ -39,6 +47,8 @@ from .inversion import (
     e4e_igen_loss,
     e4e_ireal_loss,
     e4e_ireal_novel_loss,
+    fewshot_feature_losses,
+    fewshot_image_loss_frame,
     oneshot_d_loss,
     oneshot_igen_loss,
     oneshot_ireal_loss,
@@ -61,6 +71,25 @@ def oneshot_tex_trainable(name: str) -> bool:
 def oneshot_tri_trainable(name: str) -> bool:
     """One-shot stage, the tri-plane SFT U-Net's optimizer."""
     return name.startswith("unet_encoder.triplane_unet.")
+
+
+def unet_decoder_trainable(name: str) -> bool:
+    """Few-shot stage: the U-Nets' decoders (ups, heads, GRUs) train; their
+    IR-SE trunks (`input_layer`, `body`), the e4e encoder and the generator
+    stay frozen."""
+    if not name.startswith("unet_encoder."):
+        return False
+    return not name.split(".", 2)[-1].startswith(("input_layer", "body"))
+
+
+def fewshot_tex_trainable(name: str) -> bool:
+    """Few-shot stage, the texture U-Net's decoder."""
+    return unet_decoder_trainable(name) and name.startswith("unet_encoder.texture_unet.")
+
+
+def fewshot_tri_trainable(name: str) -> bool:
+    """Few-shot stage, the tri-plane SFT U-Net's decoder."""
+    return unet_decoder_trainable(name) and name.startswith("unet_encoder.triplane_unet.")
 
 
 def masked_adam(module: torch.nn.Module, lr: float, predicate: Callable[[str], bool],
@@ -295,8 +324,9 @@ def make_oneshot_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
     0`: no adversarial term, no D phase). `fast_igen_target` routes the
     no-grad renders (the Igen target, the e4e prefix render) and `fast_grad`
     the student render (`train/fast_render.py`); `generator` feeds the
-    renderer's stochastic strata (none under those overrides). The batch is `{"image" [B,3(+mask),H,W], "c", "v", "uv" [B,6,256,256], "z",
-    "gen_uv"}` on the net's device."""
+    renderer's stochastic strata (none under those overrides). The batch is
+    `{"image" [B,3(+mask),H,W], "c", "v", "uv" [B,6,256,256], "z", "gen_uv"}`
+    on the net's device."""
     return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad)
 
 
@@ -455,5 +485,336 @@ def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator
     if d_state is not None:
         payload["d_state"] = d_state.state_dict()
     save_checkpoint(os.path.join(cfg.run_dir, "snapshot-final.pt"), payload)
+    logger.close()
+    return state, d_state
+
+
+# ---------------------------------------------------------------- few-shot stage
+
+
+def _clip_slicer(batch: Dict, Tc: int):
+    """(slice of a [B, T, ...] clip tensor by chunk, the chunk's v dict)."""
+    uvi = batch["v"]["uvcoords_image"]
+
+    def sl(x, i):
+        return x[:, i * Tc:(i + 1) * Tc]
+
+    return sl, lambda i: {"uvcoords_image": sl(uvi, i)}
+
+
+@torch.no_grad()
+def _fewshot_prefix(net, batch: Dict, Tc: int, nograd_ov, generator, synthetic: bool):
+    """The gradient-free prefix of a few-shot phase. With `synthetic`, the
+    clip is the frozen generator's render of `batch["z"]` (ψ 0.6, the first
+    frame's camera), chunk by chunk, and the codes are the encoder's of its
+    first frame; else the clip is the batch's frames and the codes
+    `batch["ws"]` (encoded from the first frame when absent). Then the
+    feature lists of the codes, every chunk's U-Net inputs and the GRU states
+    rolled over chunks 0..n-2. Returns a dict: "ws", "tex", "uv_in",
+    "tri_in", "r_tex", "r_tri" (those of the last chunk) and, with
+    `synthetic`, "targets" (each chunk's "image", "feature_image" and
+    "triplane", [B·Tc, ...]; all kept, ~25 MB a frame at flagship width,
+    where the JAX package re-renders each before its gradient to spare a
+    TPU's memory)."""
+    G = net.generator
+    vid_c = batch["c"]
+    B, T = vid_c.shape[:2]
+    n = T // Tc
+    sl, v_sl = _clip_slicer(batch, Tc)
+    out = {}
+    if synthetic:
+        ws_gen = G.mapping(batch["z"], vid_c[:, 0], truncation_psi=0.6)
+        gt_tex, gt_static = net.backbone_feats(ws_gen)
+        out["targets"] = []
+        for i in range(n):
+            t = net.render_clip(ws_gen, gt_tex, gt_static, sl(vid_c, i), v_sl(i),
+                                evaluation=nograd_ov is not None, rendering_overrides=nograd_ov,
+                                generator=generator)
+            out["targets"].append({k: t[k] for k in ("image", "feature_image", "triplane")})
+        frames = torch.cat([t["image"].reshape(B, Tc, *t["image"].shape[1:])
+                            for t in out["targets"]], dim=1)
+        ws = net.encode(frames[:, 0])
+    else:
+        frames = batch["image"][:, :, :3]
+        ws = batch.get("ws")
+        if ws is None:
+            ws = net.encode(frames[:, 0])
+    tex, static = net.backbone_feats(ws)
+    r_tex = r_tri = None
+    for i in range(n):
+        uv_in, tri_in, _ = net.multiT_chunk_inputs(sl(frames, i), sl(vid_c, i), v_sl(i),
+                                                   sl(batch["uv"], i), ws, tex, static,
+                                                   nograd_render=nograd_ov, generator=generator)
+        if i < n - 1:
+            r_tex, r_tri = net.multiT_chunk_state(uv_in, tri_in, r_tex, r_tri)
+    out.update(ws=ws, tex=tex, uv_in=uv_in, tri_in=tri_in, r_tex=r_tex, r_tri=r_tri)
+    return out
+
+
+def make_fewshot_train_step(net, lpips_fn: Callable, weights: InversionLossWeights,
+                            frm_per_chunk: int = 6, fast_no_grad: str = "off",
+                            fast_grad: str = "off"):
+    """The few-shot stage's I phase. Returns `step(state, batch,
+    do_igen=False, multiT=False, fake_idx=None, d_module=None,
+    generator=None) -> aux`; `state` holds the `InversionNet` and one
+    decoder's `masked_adam` (`fewshot_tex_trainable` /
+    `fewshot_tri_trainable`), the only parameters made trainable.
+
+    The clip is [B, T, ...] (`batch`: "image" [B, T, 3(+mask), H, W], "c",
+    "v" {"uvcoords_image"}, "uv" [B, T, 6, 256, 256], "z", optionally "ws");
+    with `multiT` it rolls in chunks of `frm_per_chunk` frames. The prefix
+    (`_fewshot_prefix`) runs without gradient; the U-Nets and the SFT
+    backbone run once with it (`InversionNet.multiT_offsets`). Their outputs,
+    the texture offsets and the static features, are cut off as leaves; each
+    selected frame is rendered (overrides `fast_grad`), its loss taken and
+    backpropagated into the leaves, one render's graph alive at a time; the
+    leaves' gradients, divided by the frame count, then go back through the
+    backbone and the U-Nets in one `torch.autograd.backward`. Every loss term
+    is a mean over equal frames, so this is the clip loss's gradient.
+      * Ireal (`do_igen=False`): the real frames `fake_idx` (all when None;
+        the first selected frame whole, the later ones through the head mask).
+      * Igen: the frozen generator's clip of `batch["z"]` is both input and
+        target; every chunk is supervised with the final offsets (its frames
+        rendered with the last chunk's U-Net outputs), and the terms are
+        averaged over chunks (the adversarial term through `d_module`, frozen
+        here, with `adv > 0`).
+    No-grad renders take the overrides `fast_no_grad`; `generator` feeds the
+    renderer's stochastic draws."""
+    nograd_ov = nograd_overrides(fast_no_grad)
+    grad_ov = grad_overrides(fast_grad)
+    G = net.generator
+
+    def step(state: TrainState, batch: Dict, do_igen: bool = False, multiT: bool = False,
+             fake_idx=None, d_module: Optional[torch.nn.Module] = None,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        vid_c = batch["c"]
+        B, T = vid_c.shape[:2]
+        Tc = min(frm_per_chunk, T) if multiT else T
+        assert T % Tc == 0, (T, Tc)
+        sl, v_sl = _clip_slicer(batch, Tc)
+        _train_only(net, state.opt)
+        net.zero_grad(set_to_none=True)
+        pre = _fewshot_prefix(net, batch, Tc, nograd_ov, generator, synthetic=do_igen)
+        ws, tex = pre["ws"], pre["tex"]
+
+        # (camera [B, 25], uvcoords, target, masked) of each rendered frame,
+        # grouped in chunks whose mean losses are averaged
+        if do_igen:
+            d_apply = None
+            if weights.adv > 0 and d_module is not None:
+                d_module.requires_grad_(False)
+
+                def d_apply(pair):
+                    return d_module(pair, torch.zeros_like(vid_c[:, 0]))
+
+            groups = [[(sl(vid_c, i)[:, t], v_sl(i)["uvcoords_image"][:, t],
+                        {k: v.reshape(B, Tc, *v.shape[1:])[:, t] for k, v in target.items()},
+                        False) for t in range(Tc)]
+                      for i, target in enumerate(pre["targets"])]
+        else:
+            idx = (torch.arange(T, device=vid_c.device) if fake_idx is None
+                   else torch.as_tensor(fake_idx, device=vid_c.device))
+            uvi = batch["v"]["uvcoords_image"]
+            groups = [[(vid_c[:, j], uvi[:, j], batch["image"][:, j], t > 0)
+                       for t, j in enumerate(idx.tolist())]]
+
+        offsets, statics = net.multiT_offsets(pre["uv_in"], pre["tri_in"], pre["r_tex"],
+                                              pre["r_tri"], ws)
+        del pre
+        outs = list(offsets) + list(statics)
+        leaves = [o.detach().requires_grad_(o.requires_grad) for o in outs]
+        off_l, st_l = leaves[:len(offsets)], leaves[len(offsets):]
+        n_frames = sum(len(g) for g in groups)
+        aux: Dict[str, torch.Tensor] = {}
+        for group in groups:
+            chunk_aux: Dict[str, torch.Tensor] = {}
+            for c_t, uvc_t, target_t, masked in group:
+                out = G.synthesis_withTexture(ws, offset_feats(tex, off_l), c_t,
+                                              {"uvcoords_image": uvc_t}, static_feats=st_l,
+                                              noise_mode="const", rendering_overrides=grad_ov,
+                                              generator=generator)
+                if do_igen:
+                    total, losses = fewshot_feature_losses(out, target_t, lpips_fn, weights,
+                                                           d_apply)
+                else:
+                    total, losses = fewshot_image_loss_frame(out["image"], target_t, lpips_fn,
+                                                             weights, masked)
+                total.backward()
+                for k, v in losses.items():
+                    chunk_aux[k] = chunk_aux.get(k, 0.0) + v.detach()
+            for k, v in chunk_aux.items():
+                aux[k] = aux.get(k, 0.0) + v / len(group)
+        pairs = [(o, leaf.grad / n_frames) for o, leaf in zip(outs, leaves)
+                 if o.requires_grad and leaf.grad is not None]
+        torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+        _adam_step(state.opt)
+        phase = "Igen" if do_igen else "Ireal"
+        return {f"{phase}/{k}": v / len(groups) for k, v in aux.items()}
+
+    return step
+
+
+def fewshot_phase_schedule(batch_idx: int, curriculum=(6, 12, 18), d_reg_interval: int = 16):
+    """(U-Net, clip length T, do_r1) of batch `batch_idx`: the tri-plane
+    U-Net on even batches, the texture U-Net on odd; T cycles through the
+    curriculum as 6 / 12 12 / 18 18 by `batch_idx % 5`; R1 every
+    `d_reg_interval` batches."""
+    unet = "tri" if batch_idx % 2 == 0 else "tex"
+    m = batch_idx % 5
+    T = curriculum[0] if m < 1 else (curriculum[1] if m < 3 else curriculum[2])
+    return unet, T, batch_idx % d_reg_interval == 0
+
+
+def make_fewshot_d_step(net, weights: InversionLossWeights, frm_per_chunk: int = 6,
+                        fast_no_grad: str = "off"):
+    """The few-shot stage's D phase. Returns `step(d_state, batch,
+    do_r1=False, generator=None) -> aux`: without gradient, the frozen
+    generator's clip of `batch["z"]` (the real pairs) and the network's
+    rollout over it in chunks of `frm_per_chunk`, every frame rendered with
+    the last chunk's U-Net outputs (the fake pairs), all renders with the
+    overrides `fast_no_grad`; then the dual discriminator's loss
+    (`oneshot_d_loss`, R1 with `do_r1`) and one step of `d_state.opt`."""
+    nograd_ov = nograd_overrides(fast_no_grad)
+
+    def step(d_state: TrainState, batch: Dict, do_r1: bool = False,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        vid_c = batch["c"]
+        B, T = vid_c.shape[:2]
+        Tc = min(frm_per_chunk, T)
+        assert T % Tc == 0, (T, Tc)
+        sl, v_sl = _clip_slicer(batch, Tc)
+        with torch.no_grad():
+            pre = _fewshot_prefix(net, batch, Tc, nograd_ov, generator, synthetic=True)
+            offsets, statics = net.multiT_offsets(pre["uv_in"], pre["tri_in"], pre["r_tex"],
+                                                  pre["r_tri"], pre["ws"])
+            texture = offset_feats(pre["tex"], offsets)
+            fakes = [net.render_clip(pre["ws"], texture, statics, sl(vid_c, i), v_sl(i),
+                                     evaluation=nograd_ov is not None,
+                                     rendering_overrides=nograd_ov, generator=generator)
+                     for i in range(T // Tc)]
+        fake_pair = {"image": torch.cat([f["image"] for f in fakes]),
+                     "image_raw": torch.cat([f["feature_image"][:, :3] for f in fakes])}
+        real_pair = {"image": torch.cat([t["image"][:, :3] for t in pre["targets"]]),
+                     "image_raw": torch.cat([t["feature_image"][:, :3] for t in pre["targets"]])}
+        del pre, fakes, offsets, statics, texture
+        d_state.module.requires_grad_(True)
+        d_state.opt.zero_grad(set_to_none=True)
+        total, aux = oneshot_d_loss(d_state.module, fake_pair, real_pair, vid_c.reshape(B * T, -1),
+                                    weights, do_r1)
+        total.backward()
+        _adam_step(d_state.opt)
+        return {f"D/{k}": v.detach() for k, v in aux.items()}
+
+    return step
+
+
+def fewshot_fake_idx(seed: int, step_idx: int, T: int, Tc: int) -> np.ndarray:
+    """Ireal's rendered frames of step `step_idx`: frame 0, then Tc − 1 of
+    the others in a draw seeded by (seed, step), so a resumed run draws the
+    same."""
+    npr = np.random.RandomState(seed * 1000003 + step_idx)
+    return np.concatenate([[0], 1 + npr.permutation(T - 1)[:Tc - 1]]).astype(np.int64)
+
+
+def train_fewshot(net, clip_iter: Iterator[Dict], cfg: InversionTrainConfig, lpips_fn: Callable,
+                  d_module: Optional[torch.nn.Module] = None, max_steps: Optional[int] = None,
+                  multiT: Optional[tuple] = (6, 12, 18), frm_per_chunk: int = 6,
+                  resume_path: Optional[str] = None, mesh=None, fast_no_grad: str = "off",
+                  fast_grad: str = "off", snapshot_every: Optional[int] = None,
+                  on_step: Optional[Callable] = None, device="cuda"):
+    """The few-shot stage's training loop over the clips `clip_iter` yields ({"image" [B,
+    T_max, 3(+mask), H, W] in [-1, 1], "c" [B, T_max, 25], "v"
+    {"uvcoords_image"}, "uv" [B, T_max, 6, 256, 256], "z"}, on any device).
+
+    Step i (`fewshot_phase_schedule`) trains one U-Net's decoder with its own
+    Adam (`masked_adam`, lr `cfg.lr`): the clip cut to T = min(curriculum
+    length, clip length) frames (all of them with `multiT=None`), the Ireal
+    phase on `fewshot_fake_idx`'s frames, then, when the clip carries "z",
+    the Igen phase and, with `d_module` and `adv > 0`, the D phase (its own
+    Adam, lr `cfg.lr`, R1 every `wd_reg_interval` steps). Step i draws from
+    `step_generator(seed, i)`. Stats every 50 steps and at `max_steps`;
+    snapshots `snapshot-<nimg>.pt` every `snapshot_every` steps and
+    `snapshot-final.pt` at the end, in `run_dir`; `resume_path` restores
+    one. `fast_no_grad` / `fast_grad` pick the renders' overrides;
+    `on_step(step_idx, cur_nimg, aux)` runs after each step. Runs on CUDA
+    unless `device="cpu"` is asked for; `mesh` (data parallelism) is not
+    ported (ROADMAP A10). Returns (state, d_state), `state.opt` the last
+    trained decoder's."""
+    if mesh is not None:
+        raise NotImplementedError("train_fewshot runs on one device: data parallelism over a "
+                                  "mesh is ROADMAP A10")
+    device = resolve_device(device)
+    net.to(device)
+    opts = {"tex": masked_adam(net, cfg.lr, fewshot_tex_trainable),
+            "tri": masked_adam(net, cfg.lr, fewshot_tri_trainable)}
+    d_state = None
+    if d_module is not None and cfg.weights.adv > 0:
+        d_module.to(device)
+        d_state = TrainState(d_module, torch.optim.Adam(d_module.parameters(), lr=cfg.lr,
+                                                        eps=1e-8))
+    cur_nimg = step_idx = 0
+    if resume_path is not None:
+        snap = restore_checkpoint(resume_path, map_location=device)
+        net.load_state_dict(snap["net"])
+        for k, opt in opts.items():
+            opt.load_state_dict(snap["opt"][k])
+        if d_state is not None:
+            d_state.load_state_dict(snap["d_state"])
+        cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+
+    step_fn = make_fewshot_train_step(net, lpips_fn, cfg.weights, frm_per_chunk, fast_no_grad,
+                                      fast_grad)
+    d_step_fn = (make_fewshot_d_step(net, cfg.weights, frm_per_chunk, fast_no_grad)
+                 if d_state is not None else None)
+    collector = Collector()
+    logger = StatsLogger(cfg.run_dir)
+
+    def snapshot(tag):
+        payload = {"net": net.state_dict(), "opt": {k: o.state_dict() for k, o in opts.items()},
+                   "cur_nimg": cur_nimg, "step_idx": step_idx}
+        if d_state is not None:
+            payload["d_state"] = d_state.state_dict()
+        save_checkpoint(os.path.join(cfg.run_dir, tag), payload)
+
+    state = TrainState(net, opts["tri"])
+    t0 = time.time()
+    while (max_steps is None or step_idx < max_steps) and cur_nimg < cfg.total_kimg * 1000:
+        batch = to_device(next(clip_iter), device)
+        T_max = batch["c"].shape[1]
+        unet, T, do_r1 = fewshot_phase_schedule(step_idx, multiT or (T_max,) * 3,
+                                                cfg.wd_reg_interval)
+        T = min(T, T_max)
+        clip = {k: v[:, :T] for k, v in batch.items() if k in ("image", "c", "uv")}
+        clip["v"] = {"uvcoords_image": batch["v"]["uvcoords_image"][:, :T]}
+        if "z" in batch:
+            clip["z"] = batch["z"]
+        fake_idx = (fewshot_fake_idx(cfg.seed, step_idx, T, min(frm_per_chunk, T))
+                    if multiT is not None else None)
+        with torch.no_grad():
+            clip["ws"] = net.encode(clip["image"][:, 0, :3])
+        gen = step_generator(cfg.seed, step_idx, device)
+        state = TrainState(net, opts[unet])
+        aux = step_fn(state, clip, do_igen=False, multiT=multiT is not None, fake_idx=fake_idx,
+                      generator=gen)
+        if "z" in batch:
+            aux.update(step_fn(state, clip, do_igen=True, multiT=multiT is not None,
+                               d_module=d_state.module if d_state is not None else None,
+                               generator=gen))
+            if d_step_fn is not None:
+                aux.update(d_step_fn(d_state, clip, do_r1=do_r1, generator=gen))
+        cur_nimg += cfg.batch_size
+        step_idx += 1
+        for k, v in aux.items():
+            collector.report(k, v.float().cpu().numpy())
+        if on_step is not None:
+            on_step(step_idx - 1, cur_nimg, aux)
+        if snapshot_every and step_idx % snapshot_every == 0:
+            snapshot(f"snapshot-{cur_nimg:08d}.pt")
+        if step_idx % 50 == 0 or (max_steps and step_idx >= max_steps):
+            collector.update()
+            print(f"kimg {cur_nimg / 1000:.2f} ({time.time() - t0:.0f}s) "
+                  + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+            logger.write(collector, cur_nimg)
+    snapshot("snapshot-final.pt")
     logger.close()
     return state, d_state

@@ -9,6 +9,7 @@ inversion or a training step (e4e, GAN, one-shot) goes on one GPU.
     python -m invertavatar_torch.utils.profiling gan      # one GAN step, batch 4
     python -m invertavatar_torch.utils.profiling gan_r1   # ... with the R1 penalty
     python -m invertavatar_torch.utils.profiling oneshot_train  # Ireal+Dreal, Igen+Dgen
+    python -m invertavatar_torch.utils.profiling fewshot_train  # Ireal+Igen+D at T=18
 
 `frame` builds the flagship generator with seeded random weights (as
 `chip_smoke.py` does) and precomputes the avatar once; `online` drives it
@@ -27,14 +28,22 @@ flagship generator with 48+48 samples, IR-SE-50 encoder, float32 SegFormer
 U-Nets, the dual discriminator at 512²) and runs, per iteration, an Ireal
 step (tri U-Net) with its Dreal phase and an Igen step (tex U-Net) with its
 Dgen phase, batch 2, 512², under the B3 fast paths (1 warm-up, 2 timed and
-1 traced iteration). Each times untraced iterations on the host clock, then traces
+1 traced iteration); `fewshot_train` builds phase 21's few-shot training
+models (float32 flagship generator with 48+48 samples, IR-SE-50 encoder,
+float32 IR-SE-50 ConvGRU U-Nets, the dual discriminator at 512², LPIPS
+AlexNet with seeded weights) and runs one step of the curriculum's longest
+clip: Ireal (tri-plane decoder, 6 of 18 frames), Igen and D on a seeded
+18-frame 512² clip in chunks of 6, batch 1, no-grad renders fused (B1/B2),
+grad-carrying ones on B3 and its transpose (1 warm-up, 2 timed and 1
+traced iteration). Each times untraced iterations on the host clock, then traces
 iterations with `torch.profiler` and prints, per iteration:
   * host ms and the peak memory (untraced) and device busy ms (the sum of kernel times; one
     stream, so kernels do not overlap) and the device's idle share
   * for all but `e4e`, each stage (frame: the driving signal, rasterize,
     face backbone, renderer, super-resolution; absorb and oneshot: encode,
     the texture and static backbones, the render, both U-Nets;
-    oneshot_train: those and the discriminator's forwards; gan: the
+    oneshot_train and fewshot_train: those and the discriminator's forwards
+    (fewshot_train: LPIPS too); gan: the
     generator's and the discriminator's forwards, the backward passes and
     Adam falling in the rest), and the rest: its window
     on the device timeline, the device time busy inside it, its device ops
@@ -259,6 +268,47 @@ def _oneshot_train(dev):
     return run, [t[0] for t in targets], _stage_scopes(targets)
 
 
+def _fewshot_train(dev):
+    """(iteration, stages, scopes) of one few-shot training step at phase
+    21's shape and longest clip: Ireal (tri-plane decoder) + Igen + D, T=18."""
+    from ..flagship import fewshot_train_batch, fewshot_train_models
+    from ..losses.lpips import LPIPS
+    from ..train import loop_inversion as li
+    from ..train.inversion import InversionLossWeights
+    from ..train.state import TrainState
+
+    net, D = fewshot_train_models(seed=21, device=dev)
+    torch.manual_seed(21)
+    lpips = LPIPS("alex").to(dev).eval().requires_grad_(False)
+    with torch.no_grad():
+        for p in lpips.lin.parameters():
+            p.abs_()
+    clip = fewshot_train_batch(1, 18, 512, seed=21, device=dev)
+    weights = InversionLossWeights(l1=1.0, lpips=1.0, id=0.0, raw_l1=1.0, tri=0.001,
+                                   lr_lpips=1.0, adv=0.1)
+    step = li.make_fewshot_train_step(net, lpips, weights, 6, "fused", "pallas")
+    d_step = li.make_fewshot_d_step(net, weights, 6, "fused")
+    state = TrainState(net, li.masked_adam(net, 1e-4, li.fewshot_tri_trainable))
+    d_state = TrainState(D, torch.optim.Adam(D.parameters(), lr=1e-4))
+    idx = li.fewshot_fake_idx(0, 3, 18, 6)
+
+    def run():
+        step(state, clip, multiT=True, fake_idx=idx)
+        step(state, clip, do_igen=True, multiT=True, d_module=D)
+        d_step(d_state, clip)
+
+    G, unets = net.generator, net.unet_encoder
+    targets = [("encode", net, "encode"),
+               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
+               ("backbone", G.backbone.synthesis, "forward"),
+               ("render", G, "synthesis_withTexture"),
+               ("texture_unet", unets.texture_unet, "forward"),
+               ("triplane_unet", unets.triplane_unet, "forward"),
+               ("discriminator", D, "forward"),
+               ("lpips", lpips, "forward")]
+    return run, [t[0] for t in targets], _stage_scopes(targets)
+
+
 def main(argv=None):
     import sys
 
@@ -268,9 +318,9 @@ def main(argv=None):
     dev = torch.device("cuda")
     paths = {"frame": _frame, "online": lambda d: _frame(d, online=True), "absorb": _absorb,
              "oneshot": _oneshot, "e4e": _e4e, "gan": _gan, "gan_r1": lambda d: _gan(d, True),
-             "oneshot_train": _oneshot_train}
+             "oneshot_train": _oneshot_train, "fewshot_train": _fewshot_train}
     run, stage_names, scopes = paths[path](dev)
-    warmup, timed, traced = ((1, 2, 1) if path in ("gan_r1", "oneshot_train")
+    warmup, timed, traced = ((1, 2, 1) if path in ("gan_r1", "oneshot_train", "fewshot_train")
                              else (3, TIMED_FRAMES, TRACED_FRAMES))
     for _ in range(warmup):
         run()

@@ -758,7 +758,8 @@ def test_train_inversion_cli(tmp_path, reference_pickler, stage, steps):
     """`cli/train_inversion.py` on a forged generator pickle and a two-frame
     dataset at 256²: the stage trains for `--max-steps` on the CPU, writes
     `stats.jsonl` with Ireal and Igen losses (one-shot: steps 0-1 Ireal,
-    step 2 Igen) and its snapshot. `fewshot` and a missing card raise."""
+    step 2 Igen) and its snapshot. A missing card raises (the `fewshot`
+    stage runs in tests/test_torch_fewshot_train.py)."""
     import json
 
     from invertavatar_torch.cli import train_inversion as cli
@@ -779,6 +780,3 @@ def test_train_inversion_cli(tmp_path, reference_pickler, stage, steps):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(args)  # the card is the default
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(["--outdir", str(out), "--data", data, "--gen_pkl", pkl,
-                  "--training_state", "fewshot", "--device", "cpu"])
