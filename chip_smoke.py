@@ -107,6 +107,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the launches of each phase against the counts from the code, the peak
      memory; only the scheduled decoder moves in each step, D moves, the
      trunks, the generator and the encoder never do
+ 22. dataset preparation (`data/preprocess.py`) on the card at the FaceVerse
+     v3 mesh size (`synthetic_manager(n_grid=173)`: 59,168 faces) for 16
+     seeded coefficient frames and 512² frames: the uvcoords `.npy` files
+     (`render_uvcoords_for_video`), the UV raster once (`build_uv_raster`),
+     then per frame `uv_pverts_map` (saved as fp16 `.npy`) and
+     `uv_gttex_image` (kept as tensors: the card's machine has no PIL), all
+     in a temporary directory; ms per frame; the card against the CPU
+     within the driving-signal band (1e-4 on >= 99.9% of face pixels, 1e-3
+     on all; the textures within one level)
+ 23. metrics through the GAN trainer: phase 17's models with the GAN CLI's
+     rendering kwargs (64² render, 48+48 samples, `pallas_coarse`), a seeded
+     metric dataset of 64 items at 512² and a seeded stand-in detector (not
+     Inception); `train_gan(max_steps=2, metric_names=("fid64",))`: the
+     snapshot's `metric-fid64.jsonl` and its `Metrics/fid64` in
+     `stats.jsonl`, finite and positive, B1 launched twice per generated
+     image (coarse, fine; B2 not at all: the CLI's `det_stratified=False`
+     keeps the merged march off); on the metric's own features FID real vs
+     real = 0 (1e-6), KID, precision/recall and IS; PPL over 8 samples with
+     LPIPS VGG on seeded weights; B1 checked and timed at the sampler's
+     shapes, and B1 (raw) and B2 on its planes and 64² rays with the 48+48
+     merged list (`det_stratified` on)
+ 24. the W+ projector (`project_w_plus`): the frozen float32 flagship
+     generator at B=1, 512², the render's gradient through B3 and its
+     transpose (`pallas_grad`), LPIPS VGG features on seeded weights, the
+     target its own render of a seeded W+ code (a mapped z plus N(0, 0.1²)
+     per layer), 30 steps with w statistics over
+     1000 samples: the feature distance at least halves, B3 and the
+     transpose launch twice per step, both checked and timed (with their
+     plain versions and `F.grid_sample`) at this path's shapes; s/step and
+     the peak memory
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -147,6 +177,14 @@ FEWSHOT_CURRICULUM = (6, 12, 18)  # clip lengths of the few-shot schedule (phase
 FEWSHOT_TC = 6  # frames per chunk
 FEWSHOT_TRAIN_T = 18  # frames per clip: the curriculum's longest
 N_FEWSHOT_TRAIN = 10  # flagship few-shot steps: two passes of the curriculum, 5-9 timed
+N_PREP_FRAMES = 16  # seeded frames through dataset preparation (phase 22)
+N_METRIC_ITEMS = 64  # fid64's real and generated images (phase 23)
+N_METRIC_GAN_STEPS = 2  # train_gan steps before the metric snapshot (phase 23)
+N_PPL_SAMPLES = 8  # PPL samples (phase 23)
+N_PROJ_STEPS = 30  # project_w_plus steps (phase 24)
+N_PROJ_W_AVG = 1000  # its w statistics' samples
+PROJ_LR = 0.01  # its initial learning rate: 30 steps reach a W+ offset of ~0.1
+PROJ_W_OFFSET = 0.1  # the target's W+ code: a mapped z plus N(0, PROJ_W_OFFSET²)
 N_GAN_STEPS = 6  # flagship GAN steps (phase 17): step 0 runs both regularisations,
 # step 4 the density TV, the others neither
 N_GAN_REG_TIMED = 3  # warm steps with both regularisations, timed after the run
@@ -249,7 +287,7 @@ def recording(module, name, calls):
 
 
 def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk, res,
-                         timed=False):
+                         timed=False, tags=("[3]", "[4]")):
     """Phases 3-4 at one shape: one render through the port's renderer with B1
     and B2 recorded, each held against its plain version on the recorded
     inputs; with `timed`, both are timed and their kernel records returned."""
@@ -266,7 +304,7 @@ def render_kernel_checks(torch, fr, rmod, card, label, c_np, planes, decoder, rk
     if len(b1_calls) != 1 or len(b2_calls) != 1:
         fail(f"the {label} render made {len(b1_calls)} B1 and {len(b2_calls)} B2 calls, "
              "expected one each")
-    return fused_kernel_checks(torch, fr, card, label, b1_calls[0], b2_calls[0], timed)
+    return fused_kernel_checks(torch, fr, card, label, b1_calls[0], b2_calls[0], timed, tags)
 
 
 def fused_kernel_checks(torch, fr, card, label, b1_call, b2_call, timed=False,
@@ -666,7 +704,7 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     return records
 
 
-def compare_driving(torch, label, got, ref):
+def compare_driving(torch, label, got, ref, tag="[11]"):
     """Driving signals [1, 256, 256, 3] (u, v, mask) of two devices: the mask
     channel agrees on >= 99.9% of pixels, and where both hit u and v agree to
     1e-4 on >= 99.9% of pixels and to 1e-3 on all: under another evaluation
@@ -678,7 +716,7 @@ def compare_driving(torch, label, got, ref):
     d = (got[..., :2] - ref[..., :2]).abs().amax(dim=-1)[both]
     close = (d <= 1e-4).float().mean().item() if both.any() else 0.0
     err = d.max().item() if both.any() else float("inf")
-    print(f"[11] driving signal {label}: mask agrees on {agree * 100:.4f}% of pixels (>= 99.9%), "
+    print(f"{tag} driving signal {label}: mask agrees on {agree * 100:.4f}% of pixels (>= 99.9%), "
           f"{int(both.sum())} face pixels, u and v within 1e-4 on {close * 100:.4f}% of them "
           f"(>= 99.9%), max|du|,|dv| {err:.3e} (<= 1e-3)")
     if not (agree >= 0.999 and both.sum() > 1000 and close >= 0.999 and err <= 1e-3
@@ -951,6 +989,44 @@ def oneshot_phases(torch, dev, card, fr, mgr, traj):
     return invert_launches, drive_launches
 
 
+def gan_batch(torch, d, B, res, z_dim, seed):
+    """A seeded GAN batch on `d`: N(0, 1) images, the frontal camera, its
+    uvcoords and z."""
+    import numpy as np
+
+    from invertavatar_torch.flagship import example_inputs
+
+    z, c, uvc = example_inputs(B, seed=seed)
+    img = np.random.RandomState(seed).randn(B, 3, res, res).astype(np.float32)
+    return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c).to(d),
+            "v": {"uvcoords_image": torch.from_numpy(uvc).to(d)},
+            "z": torch.from_numpy(z[:, :z_dim]).to(d)}
+
+
+def gan_models(torch, dev, seed):
+    """The GAN CLI's models at flagship width after `torch.manual_seed(seed)`:
+    the float32 generator (channel_base 32768, channel_max 512, neural
+    rendering 64², `cli/train_gan.py`'s rendering kwargs: 48+48 stochastic
+    samples, `pallas_coarse` kept from the flagship dict) and the dual
+    discriminator at 512² (6 channels, bf16 top 4 resolutions)."""
+    from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS
+    from invertavatar_torch.models.discriminator import DualDiscriminator
+    from invertavatar_torch.models.triplane import TriPlaneGenerator
+
+    rk = dict(FLAGSHIP_RENDERING_KWARGS, c_gen_conditioning_zero=True, gpc_reg_prob=None,
+              density_reg=0.25, superresolution_noise_mode="random", det_stratified=False,
+              depth_resolution=48, depth_resolution_importance=48)
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        G = TriPlaneGenerator(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
+                              img_channels=3, rendering_kwargs=rk,
+                              neural_rendering_resolution=64, channel_base=32768,
+                              channel_max=512, map_num_layers=2)
+        D = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=6, channel_base=32768,
+                              channel_max=512, num_fp16_res=4)
+    return G, D
+
+
 def gan_phases(torch, dev, card):
     """Phases 16-17: a tiny GAN step on the card against the CPU, then
     `train_gan` at flagship width for `N_GAN_STEPS` steps of batch 4, then
@@ -959,7 +1035,6 @@ def gan_phases(torch, dev, card):
 
     import numpy as np
 
-    from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS, example_inputs
     from invertavatar_torch.models.discriminator import DualDiscriminator
     from invertavatar_torch.models.triplane import TriPlaneGenerator
     from invertavatar_torch.train import gan as pg
@@ -967,11 +1042,7 @@ def gan_phases(torch, dev, card):
     from invertavatar_torch.train.state import LazyRegAdam, TrainState
 
     def batch_on(d, B, res, z_dim, seed):
-        z, c, uvc = example_inputs(B, seed=seed)
-        img = np.random.RandomState(seed).randn(B, 3, res, res).astype(np.float32)
-        return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c).to(d),
-                "v": {"uvcoords_image": torch.from_numpy(uvc).to(d)},
-                "z": torch.from_numpy(z[:, :z_dim]).to(d)}
+        return gan_batch(torch, d, B, res, z_dim, seed)
 
     # ---------------------------------------------------------------- phase 16
     # the JAX dry run's tiny models, every draw the card and the CPU would
@@ -1038,18 +1109,8 @@ def gan_phases(torch, dev, card):
     del results, G0, D0
 
     # ---------------------------------------------------------------- phase 17
-    rk = dict(FLAGSHIP_RENDERING_KWARGS, c_gen_conditioning_zero=True, gpc_reg_prob=None,
-              density_reg=0.25, superresolution_noise_mode="random", det_stratified=False,
-              depth_resolution=48, depth_resolution_importance=48)
     t0 = time.perf_counter()
-    torch.manual_seed(17)
-    with torch.device(dev):
-        G = TriPlaneGenerator(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
-                              img_channels=3, rendering_kwargs=rk,
-                              neural_rendering_resolution=64, channel_base=32768,
-                              channel_max=512, map_num_layers=2)
-        D = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=6, channel_base=32768,
-                              channel_max=512, num_fp16_res=4)
+    G, D = gan_models(torch, dev, 17)
     batches = [batch_on(dev, GAN_BATCH, 512, 512, 170 + i) for i in range(N_GAN_STEPS)]
     torch.cuda.synchronize()
     print(f"[17] GAN models built: G {sum(p.numel() for p in G.parameters()) / 1e6:.1f} M, D "
@@ -1151,11 +1212,13 @@ def small_train_models(make, seed, device):
     return net, D
 
 
-def b3_path_checks(torch, ps, card, tag, calls, gen):
+def b3_path_checks(torch, ps, card, tag, calls, gen, extra=None):
     """B3 (fp32) and its transpose against their plain versions, and timed, on
     the two recorded `sample_planes_windowed_cvjp` calls (coarse, fine) of one
     student render of a training path; returns {kernel: {pass: (max |k -
-    p|, ms, bound ms)}}."""
+    p|, ms, bound ms)}}. With a dict `extra`, the plain versions and the
+    library calls (`F.grid_sample` and its backward) are timed too, into
+    extra[kernel][pass] = (plain ms, library ms)."""
     if len(calls) != 2:
         fail(f"a student render made {len(calls)} B3 calls, expected 2 (coarse, fine)")
     checks = {"plane_sample": {}, "plane_sample_transpose": {}}
@@ -1180,6 +1243,25 @@ def b3_path_checks(torch, ps, card, tag, calls, gen):
                   f"{b_ms:.4f} ms ({b_by}) on {card}")
             checks["plane_sample"][label] = (errs[torch.float32], f_ms, b_ms)
             checks["plane_sample_transpose"][label] = (e_t, t_ms, b_ms)
+            if extra is not None:
+                import torch.nn.functional as F
+
+                planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
+                cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
+                f_times = (device_ms(lambda: ps.sample_planes_windowed_reference(planes, grid)),
+                           device_ms(lambda: F.grid_sample(planes_nchw, grid, mode="bilinear",
+                                                           padding_mode="zeros",
+                                                           align_corners=False)))
+                t_times = (device_ms(lambda: ps.windowed_sample_transpose_reference(
+                               grid, cot, planes.shape)),
+                           device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                               cot_nchw, planes_nchw, grid, 0, 0, False, [True, False])))
+                extra.setdefault("plane_sample", {})[label] = f_times
+                extra.setdefault("plane_sample_transpose", {})[label] = t_times
+                print(f"{tag} B3 {what}: plain {f_times[0]:.4f} ms, F.grid_sample "
+                      f"{f_times[1]:.4f} ms; transpose plain {t_times[0]:.4f} ms, "
+                      f"grid_sample backward {t_times[1]:.4f} ms on {card}")
+                del planes_nchw, cot_nchw
     return checks
 
 
@@ -1781,6 +1863,403 @@ def fewshot_train_phases(torch, dev, card):
     return launches, checks
 
 
+def uv_band(torch, tag, label, got, ref):
+    """Two devices' UV maps [res, res, 3] within the driving-signal band:
+    where either side covers a pixel, |card - CPU| <= 1e-4 on >= 99.9% of
+    them and <= 1e-3 on all. Returns the largest difference."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    face = (got.abs().amax(dim=-1) > 0) | (ref.abs().amax(dim=-1) > 0)
+    d = (got - ref).abs().amax(dim=-1)[face]
+    close = (d <= 1e-4).float().mean().item() if face.any() else 0.0
+    err = d.max().item() if face.any() else float("inf")
+    if not (face.sum() > 1000 and close >= 0.999 and err <= 1e-3):
+        fail(f"{label}: {int(face.sum())} face pixels, {close * 100:.4f}% within 1e-4, max "
+             f"{err:.3e}: the card disagrees with the CPU")
+    return err, close, int(face.sum())
+
+
+def preprocess_phase(torch, dev, card):
+    """Phase 22: dataset preparation (`data/preprocess.py`) on the card at the
+    FaceVerse v3 mesh size, against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from invertavatar_torch.data import preprocess as pp
+    from invertavatar_torch.faceverse.synthetic import COEFF_DIM, synthetic_manager, uv_model_dict
+
+    t0 = time.perf_counter()
+    mgr, _ = synthetic_manager(n_grid=173, seed=22, device=dev)
+    mgr_cpu, _ = synthetic_manager(n_grid=173, seed=22, device="cpu")
+    md = uv_model_dict(mgr.model.assets)
+    V, F = md["uv_per_ver"].shape[0], len(md["tri"]) - 1
+    if (V, F) != (29929, 59168):
+        fail(f"the synthetic mesh has {V} vertices and {F} faces, expected 29929 and 59168")
+    rng = np.random.RandomState(22)
+    coeffs = (rng.randn(N_PREP_FRAMES, COEFF_DIM) * 0.1).astype(np.float32)
+    # unit scale: the head ~100 pixels across the 512² frame
+    coeffs[:, -1] = 1.0 + rng.randn(N_PREP_FRAMES) * 0.05
+    frames = rng.rand(N_PREP_FRAMES, 3, 512, 512).astype(np.float32)
+    vert_mask = np.ones(V, np.float32)
+    K = pp.uv_camera_intrinsics()
+    print(f"[22] synthetic FaceVerse model ({V} vertices, {F} faces, point_buf "
+          f"{md['point_buf'].shape}), {N_PREP_FRAMES} seeded coefficient frames and 512² frames "
+          f"in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as out_dir:
+        paths = []
+        for i, c in enumerate(coeffs):
+            paths.append(os.path.join(out_dir, f"{i:05d}.npy"))
+            np.save(paths[-1], c)
+        orth = os.path.join(out_dir, "orthRender256x256_face_eye")
+        uv_dir = os.path.join(out_dir, "uvRender256x256")
+        os.makedirs(uv_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp.render_uvcoords_for_video(mgr, paths, orth)
+        torch.cuda.synchronize()
+        uvc_ms = (time.perf_counter() - t0) * 1e3 / N_PREP_FRAMES
+        t0 = time.perf_counter()
+        raster, mask = pp.build_uv_raster(md["uv_per_ver"], md["tri"], vert_mask, device=dev)
+        torch.cuda.synchronize()
+        raster_ms = (time.perf_counter() - t0) * 1e3
+        frames_d = torch.from_numpy(frames).to(dev)
+        pverts, texs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(N_PREP_FRAMES):
+                pv = pp.uv_pverts_map(mgr.model, coeffs[i], raster, md["tri"], mask,
+                                      md["point_buf"], K)
+                texs.append(pp.uv_gttex_image(frames_d[i], pv))
+                np.save(os.path.join(uv_dir, f"{i:05d}.npy"), pv.cpu().numpy().astype(np.float16))
+                pverts.append(pv)
+        torch.cuda.synchronize()
+        uv_ms = (time.perf_counter() - t0) * 1e3 / N_PREP_FRAMES
+        written = [np.load(os.path.join(d, f)) for d in (orth, uv_dir)
+                   for f in sorted(os.listdir(d))]
+    if len(written) != 2 * N_PREP_FRAMES or any(
+            a.dtype != np.float16 or a.shape != (256, 256, 3) for a in written):
+        fail(f"the prepared files are {[(a.dtype, a.shape) for a in written[:3]]}..., "
+             f"expected {2 * N_PREP_FRAMES} fp16 [256, 256, 3]")
+    print(f"[22] on the card: uvcoords (orthRender, .npy) {uvc_ms:.3f} ms/frame, the UV raster "
+          f"once {raster_ms:.3f} ms, uv_pverts + uvgttex (+ .npy) {uv_ms:.3f} ms/frame (host "
+          f"clock, synchronized, {N_PREP_FRAMES} frames; the first calls included) on {card}; "
+          f"{len(written)} fp16 [256, 256, 3] files written")
+
+    # the same frames on the CPU
+    t0 = time.perf_counter()
+    raster_c, mask_c = pp.build_uv_raster(md["uv_per_ver"], md["tri"], vert_mask, device="cpu")
+    hit, hit_c = raster.face_id.cpu() >= 0, raster_c.face_id >= 0
+    same = (raster.face_id.cpu() == raster_c.face_id).float().mean().item()
+    print(f"[22] UV raster card vs CPU: coverage equal {bool(torch.equal(hit, hit_c))}, face ids "
+          f"equal on {same * 100:.4f}% of pixels (>= 99.9%)")
+    if not (np.array_equal(mask, mask_c) and torch.equal(hit, hit_c) and same >= 0.999):
+        fail("the UV raster on the card disagrees with the CPU")
+    worst, tex_worst, tex_same = 0.0, 0, 1.0
+    with torch.no_grad():
+        for i in range(N_PREP_FRAMES):
+            pv_c = pp.uv_pverts_map(mgr_cpu.model, coeffs[i], raster_c, md["tri"], mask_c,
+                                    md["point_buf"], K)
+            err, close, n_face = uv_band(torch, "[22]", f"uv_pverts frame {i}", pverts[i], pv_c)
+            worst = max(worst, err)
+            tex_c = pp.uv_gttex_image(torch.from_numpy(frames[i]), pv_c)
+            d = (texs[i].cpu().short() - tex_c.short()).abs()
+            tex_worst = max(tex_worst, int(d.max()))
+            tex_same = min(tex_same, (d == 0).float().mean().item())
+    print(f"[22] uv_pverts card vs CPU over {N_PREP_FRAMES} frames: max|d| {worst:.3e} (<= 1e-3; "
+          f">= 99.9% of face pixels within 1e-4, frame {N_PREP_FRAMES - 1}: {close * 100:.4f}% "
+          f"of {n_face}); uvgttex equal on >= {tex_same * 100:.4f}% of pixels (>= 99.9%), max "
+          f"{tex_worst} level (<= 1)")
+    if tex_same < 0.999 or tex_worst > 1:
+        fail("the uvgttex textures on the card disagree with the CPU")
+    for i in (0, N_PREP_FRAMES - 1):
+        compare_driving(torch, f"uvcoords frame {i}", mgr.make_driven_rendering(coeffs[i]),
+                        mgr_cpu.make_driven_rendering(coeffs[i]), tag="[22]")
+    print(f"[22] CPU side in {time.perf_counter() - t0:.1f} s")
+    del mgr, mgr_cpu, raster, raster_c, pverts, texs, frames_d
+
+
+def b1_sampler_check(torch, fr, card, tag, label, call):
+    """B1's direct layout (rgb, sigma float32: the unmerged fused route)
+    against its plain version on one recorded call, timed; returns (max |k -
+    p|, ms, plain ms, bound ms, bound by)."""
+    args, kw, out = call
+    planes, grid, params = args[:3]
+    with torch.inference_mode():
+        ref = fr.fused_render_reference(*args, **kw)
+        worst, bad = 0.0, 0
+        for a, b in zip(out, ref):
+            e = (a - b).abs()
+            worst = max(worst, e.max().item())
+            bad += int((e > 1e-4 * b.abs() + 1e-4).sum())
+        N, H, W, C = planes.shape
+        R, S = grid.shape[1], grid.shape[2]
+        HID = params[0].shape[1]
+        points = R * S
+        print(f"{tag} B1 fused_render {label}: rgb {tuple(out[0].shape)}, sigma "
+              f"{tuple(out[1].shape)} float32, {points} points; max|k-p| {worst:.3e}; tolerance "
+              f"|k-p| <= 1e-4|p| + 1e-4 (float32 outputs), violations {bad}")
+        if bad or not all(torch.isfinite(a).all() for a in out):
+            fail(f"B1 ({label}) disagrees with its plain version")
+        ms = device_ms(lambda: fr.fused_render(*args, **kw), "fused_render_kernel<")
+        plain_ms = device_ms(lambda: fr.fused_render_reference(*args, **kw))
+    # grid read, the bf16 payload read, rgb and sigma written in float32
+    nbytes = grid.numel() * 4 + planes.numel() * 2 + points * (C + 1) * 4
+    b, by = bound(nbytes, points * tap_flops_per_point(C), points * mlp_flops_per_point(C, HID))
+    print(f"{tag} fused_render {label} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{b:.4f} ms ({by}; {nbytes / 1e6:.1f} MB) on {card}")
+    return worst, ms, plain_ms, b, by
+
+
+def gan_metrics_phase(torch, dev, card, fr, rmod):
+    """Phase 23: FID at the GAN trainer's snapshot, with KID, precision and
+    recall, IS and PPL on its features and generator. Returns (the kernels'
+    launches in `train_gan`, {kernel: {label: (max |k - p|, ms, plain ms,
+    bound ms, bound by)}} at the sampler's shapes)."""
+    import json
+    import tempfile
+
+    import numpy as np
+
+    from invertavatar_torch.flagship import SeededMetricDataset, standin_detector
+    from invertavatar_torch.losses.lpips import LPIPS
+    from invertavatar_torch.metrics.extra import compute_is, compute_ppl, compute_pr
+    from invertavatar_torch.metrics.fid import (FeatureStats, compute_fid, compute_kid,
+                                                make_vert_conditioned_sample_fn)
+    from invertavatar_torch.train import gan as pg
+    from invertavatar_torch.train.loop_gan import GANTrainConfig, train_gan
+
+    t0 = time.perf_counter()
+    G, D = gan_models(torch, dev, 23)
+    ds = SeededMetricDataset(N_METRIC_ITEMS, 512, seed=23)
+    detect = standin_detector(device=dev, seed=23)
+    feats = []
+
+    def detector(images_u8):  # keeps the features the metric saw
+        f = detect(images_u8)
+        feats.append(f)
+        return f
+
+    batches = [gan_batch(torch, dev, GAN_BATCH, 512, 512, 230 + i)
+               for i in range(N_METRIC_GAN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"[23] GAN models (phase 17's), a seeded metric dataset of {len(ds)} 512² items and "
+          f"the seeded stand-in detector (not Inception) in {time.perf_counter() - t0:.2f} s")
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = GANTrainConfig(run_dir=run_dir, batch_size=GAN_BATCH, kimg_per_tick=1000,
+                             snapshot_images=False,
+                             loss=pg.GANLossConfig(blur_init_sigma=10.0, blur_fade_kimg=200.0,
+                                                   neural_rendering_resolution_initial=64,
+                                                   neural_rendering_resolution_fade_kimg=1000))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, G_ema, nimg = train_gan(G, D, iter(batches), cfg, max_steps=N_METRIC_GAN_STEPS,
+                                      metric_names=("fid64",), metric_dataset=ds,
+                                      metric_detector_fn=detector, device=dev)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(os.path.join(run_dir, "metric-fid64.jsonl")) as f:
+            lines = f.read().strip().splitlines()
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            stats = json.loads(f.read().strip().splitlines()[-1])
+        files = sorted(os.listdir(run_dir))
+    entry = json.loads(lines[-1])
+    fid = entry["results"]["fid64"]
+    reported = stats.get("Metrics/fid64", {}).get("mean")
+    print(f"[23] train_gan: {N_METRIC_GAN_STEPS} steps of batch {GAN_BATCH} and a snapshot with "
+          f"fid64 in {total_s:.1f} s; metric-fid64.jsonl: fid64 {fid:.6g} in "
+          f"{entry['total_time']:.3f} s (64 real and 64 generated 512² images, 64² neural "
+          f"render); stats.jsonl Metrics/fid64 {reported}; run dir {files}")
+    if len(lines) != 1 or reported != fid or not (np.isfinite(fid) and fid > 0):
+        fail(f"the snapshot's fid64 is {fid} in {len(lines)} line(s), reported {reported}")
+    if "metric-cache" not in files or not any(f.startswith("snapshot-") for f in files):
+        fail(f"train_gan wrote {files}")
+    # the sampler renders 2 B1 passes per image (coarse, fine): the GAN CLI's
+    # det_stratified=False keeps the merged march (B2) off; the steps render
+    # on the exact route
+    expect = dict.fromkeys(KERNEL_COUNTERS, 0)
+    expect["fused_render"] = 2 * N_METRIC_ITEMS
+    print(f"[23] launches in train_gan {launches}, expected {expect}")
+    if launches != expect or nimg != GAN_BATCH * N_METRIC_GAN_STEPS:
+        fail(f"train_gan launched {launches} (expected {expect}) and counted {nimg} images")
+
+    # the features the metric saw: 4 real batches of 16, then 8 generated of 8
+    n_real = -(-N_METRIC_ITEMS // 16)
+    real, gen = np.concatenate(feats[:n_real]), np.concatenate(feats[n_real:])
+    if real.shape != gen.shape or len(real) != N_METRIC_ITEMS:
+        fail(f"the metric saw features {real.shape} and {gen.shape}")
+    real_stats, gen_stats = FeatureStats(), FeatureStats()
+    real_stats.append(real)
+    gen_stats.append(gen)
+    self_fid = compute_fid(real_stats, real_stats)
+    again = compute_fid(real_stats, gen_stats)
+    kid = compute_kid(real, gen)
+    pr = compute_pr(real, gen)
+    probs = np.exp(gen * 4.0) / np.exp(gen * 4.0).sum(axis=1, keepdims=True)
+    is_mean, is_std = compute_is(probs, num_splits=4)
+    print(f"[23] on the same features: FID of the real statistics against themselves "
+          f"{self_fid:.3e} (|.| <= 1e-6), FID again {again:.6g}, KID {kid:.6g}, precision "
+          f"{pr['precision']:.4f} recall {pr['recall']:.4f}, IS of softmax(4·features) "
+          f"{is_mean:.4f} ± {is_std:.4f}")
+    if abs(self_fid) > 1e-6 or abs(again - fid) > 1e-9 * max(1.0, abs(fid)):
+        fail(f"FID real vs real {self_fid}, recomputed {again} against {fid}")
+    if not all(np.isfinite(v) for v in (kid, pr["precision"], pr["recall"], is_mean, is_std)):
+        fail("a feature metric is not finite")
+
+    # PPL on the EMA generator, LPIPS VGG on seeded weights
+    torch.manual_seed(23)
+    lpips = LPIPS("vgg").to(dev).eval()
+    with torch.no_grad():  # LPIPS's heads weigh squared differences: non-negative
+        for p in lpips.lin.parameters():
+            p.abs_()
+    uvc = torch.from_numpy(ds[0]["v"]["uvcoords_image"]).to(dev)[None]
+
+    def mapping_fn(z, c):
+        return G_ema.mapping(torch.from_numpy(z).to(dev), torch.from_numpy(c).to(dev))
+
+    def synth_fn(w, c):  # both ends of a pair render with the same draws
+        return G_ema.synthesis(torch.from_numpy(np.asarray(w, np.float32)).to(dev),
+                               torch.from_numpy(c).to(dev),
+                               {"uvcoords_image": uvc.expand(len(c), -1, -1, -1)},
+                               evaluation=True, noise_mode="const",
+                               generator=torch.Generator(device=dev).manual_seed(0))["image"]
+
+    def lpips_fn(a, b):
+        return torch.stack([lpips(a[i:i + 1], b[i:i + 1]) for i in range(len(a))])
+
+    def c_sampler(n, rng):
+        return np.stack([ds[int(i)]["c"] for i in rng.randint(len(ds), size=n)])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ppl = compute_ppl(mapping_fn, synth_fn, lpips_fn, 512, c_sampler,
+                          num_samples=N_PPL_SAMPLES, batch_size=N_PPL_SAMPLES)
+    torch.cuda.synchronize()
+    print(f"[23] PPL (w, endpoints, eps 1e-4) over {N_PPL_SAMPLES} samples with LPIPS VGG on "
+          f"seeded weights: {ppl:.6g} in {time.perf_counter() - t0:.2f} s")
+    if not (np.isfinite(ppl) and ppl >= 0):
+        fail(f"PPL {ppl}")
+
+    # the kernels at the sampler's shapes: one generated image's two B1 calls
+    calls = []
+    sample_fn = make_vert_conditioned_sample_fn(G_ema, 512, ds)
+    with recording(rmod, "fused_render", calls):
+        sample_fn(1, np.random.RandomState(23))
+    torch.cuda.synchronize()
+    if len(calls) != 2:
+        fail(f"one sampled image made {len(calls)} B1 calls, expected 2 (coarse, fine)")
+    checks = {"fused_render": {}, "fused_merged_march": {}}
+    for call, label in zip(calls, ("coarse", "fine")):
+        S = call[0][1].shape[2]
+        checks["fused_render"][f"sampler {label}"] = b1_sampler_check(
+            torch, fr, card, "[23]", f"GAN metric sampler, 64² rays, {label} S={S}", call)
+    # B1 (raw layout) and B2 at the sampler's planes and ray grid, 48+48 merged
+    # (the route with det_stratified on: 96 slots over 4,096 rays)
+    planes = calls[0][0][0].permute(0, 3, 1, 2)[None].contiguous()
+    records = render_kernel_checks(
+        torch, fr, rmod, card, "GAN sampler's planes, 64² rays, 48+48 merged", ds[0]["c"][None],
+        planes, G_ema.decoder, dict(G_ema.rendering_kwargs, det_stratified=True), 64,
+        timed=True, tags=("[23]", "[23]"))
+    for r in records:
+        checks[r["name"]]["merged 48+48"] = (r["max_abs_err"], r["ms"], r["plain_ms"],
+                                              r["bound_ms"], r["bound_by"])
+    del G, D, G_ema, batches, calls, planes, lpips
+    return launches, checks
+
+
+def projector_phase(torch, dev, card, ps, rmod):
+    """Phase 24: the W+ projector on the frozen flagship generator, B3 and its
+    transpose carrying the render's gradient. Returns (the kernels' launches
+    in `project_w_plus`, B3 / transpose checks at its shapes, plain and
+    library times there)."""
+    import numpy as np
+
+    from invertavatar_torch.flagship import example_inputs, init_flagship
+    from invertavatar_torch.flagship import training_generator_config
+    from invertavatar_torch.inversion import project_w_plus
+    from invertavatar_torch.losses.lpips import LPIPS
+    from invertavatar_torch.models.triplane import TriPlaneGenerator
+    from invertavatar_torch.train.fast_render import grad_overrides
+
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        G = TriPlaneGenerator(**training_generator_config())
+    init_flagship(G, seed=24).eval().requires_grad_(False)
+    torch.manual_seed(24)
+    lpips = LPIPS("vgg").to(dev).eval()
+    z, c, uvc = (torch.from_numpy(a).to(dev) for a in example_inputs(1, seed=24))
+    mesh = {"uvcoords_image": uvc}
+    overrides = grad_overrides("pallas")
+
+    def synth_fn(ws, noise_bufs):  # the generator's own constant noise stays
+        return G.synthesis(ws, c, mesh, noise_mode="const",
+                           rendering_overrides=overrides)["image"]
+
+    def mapping_fn(zz):
+        return G.mapping(zz, c.expand(len(zz), -1))
+
+    def feature_fn(img255):  # LPIPS VGG's unit-normalised taps, concatenated
+        x = img255 / 127.5 - 1.0
+        return torch.cat([f.flatten() for f in lpips.features((x - lpips.mean) / lpips.std)])
+
+    # the target: the render of a seeded W+ code, a mapped z plus N(0, 0.1²) per
+    # layer: with seeded random weights the mapping's output hardly depends on
+    # z (spread ~1e-6 about a mean of ~1e-3), so a mapped z alone would be
+    # the projector's starting point, w_avg
+    npr = np.random.RandomState(24)
+    with torch.no_grad():
+        w_true = G.mapping(torch.from_numpy(npr.randn(1, 512).astype(np.float32)).to(dev), c)
+        w_true = w_true + torch.from_numpy(
+            (npr.randn(*w_true.shape) * PROJ_W_OFFSET).astype(np.float32)).to(dev)
+        target = (synth_fn(w_true, {})[0] + 1.0) * 127.5
+    torch.cuda.synchronize()
+    print(f"[24] frozen float32 flagship generator (48+48 samples, 128² render, 512²), LPIPS "
+          f"VGG on seeded weights and the target (the generator's render of a seeded w) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    dists, stamps = [], []
+
+    def on_step(i, dist, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        dists.append(float(dist))
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    w_opt, _ = project_w_plus(synth_fn, mapping_fn, feature_fn, target, {},
+                              num_ws=w_true.shape[1], z_dim=512, num_steps=N_PROJ_STEPS,
+                              w_avg_samples=N_PROJ_W_AVG, initial_learning_rate=PROJ_LR,
+                              on_step=on_step, device=dev)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = np.diff(stamps)
+    expect = dict.fromkeys(KERNEL_COUNTERS, 0)
+    # one grad-carrying render per step: B3 coarse and fine, their transposes
+    expect["plane_sample"] = expect["plane_sample_transpose"] = 2 * N_PROJ_STEPS
+    print(f"[24] project_w_plus: {N_PROJ_STEPS} steps, w_avg over {N_PROJ_W_AVG} samples, lr "
+          f"{PROJ_LR}; feature distance {dists[0]:.6g} at step 0 -> {dists[-1]:.6g} at step "
+          f"{N_PROJ_STEPS - 1} (<= half); {np.median(step_s[2:]):.4f} s/step (median of steps "
+          f"2-{N_PROJ_STEPS - 1}; step 0 with the w statistics {step_s[0]:.3f} s; host clock, "
+          f"synchronized), peak memory {peak:.3f} GiB on {card}; launches {launches}, "
+          f"expected {expect}")
+    if not (np.isfinite(dists).all() and dists[-1] <= 0.5 * dists[0]):
+        fail(f"the projection's feature distance went {dists[0]} -> {dists[-1]}")
+    if launches != expect or not torch.isfinite(w_opt).all():
+        fail(f"project_w_plus launched {launches}, expected {expect}")
+    calls, extra = [], {}
+    with torch.no_grad(), recording(rmod, "sample_planes_windowed_cvjp", calls):
+        synth_fn(w_opt, {})
+    torch.cuda.synchronize()
+    checks = b3_path_checks(torch, ps, card, "[24]", calls,
+                            torch.Generator(device=dev).manual_seed(24), extra=extra)
+    del G, lpips, calls, target, w_opt
+    return launches, checks, extra
+
+
 def main(argv=None):
     import argparse
 
@@ -1944,33 +2423,50 @@ def main(argv=None):
     os_train_launches, os_train_checks = oneshot_train_phases(torch, dev, card)
     torch.cuda.empty_cache()
     fs_train_launches, fs_train_checks = fewshot_train_phases(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phases 22-24
+    preprocess_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    metric_launches, metric_checks = gan_metrics_phase(torch, dev, card, fr, rmod)
+    torch.cuda.empty_cache()
+    proj_launches, proj_checks, proj_extra = projector_phase(torch, dev, card, ps, rmod)
     for k in kernels:
-        if k["name"] in online_launches:
+        name = k["name"]
+        later = {"preprocess": 0, "gan_metrics": metric_launches[name],
+                 "projector": proj_launches[name]}
+        if name in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
-                                     "online": online_launches[k["name"]],
-                                     "fewshot_absorb": absorb_launches[k["name"]],
-                                     "fewshot_drive": drive_launches[k["name"]],
-                                     "oneshot_invert": invert_launches[k["name"]],
-                                     "oneshot_drive": os_drive_launches[k["name"]],
-                                     "gan_train": gan_launches[k["name"]],
-                                     "oneshot_train": os_train_launches[k["name"]],
-                                     "fewshot_train": fs_train_launches[k["name"]]}
+                                     "online": online_launches[name],
+                                     "fewshot_absorb": absorb_launches[name],
+                                     "fewshot_drive": drive_launches[name],
+                                     "oneshot_invert": invert_launches[name],
+                                     "oneshot_drive": os_drive_launches[name],
+                                     "gan_train": gan_launches[name],
+                                     "oneshot_train": os_train_launches[name],
+                                     "fewshot_train": fs_train_launches[name], **later}
             # the check and time at the few-shot training path's shapes (48+48)
-            err, ms, b = fs_train_checks[k["name"]]
+            err, ms, b = fs_train_checks[name]
             k.update(fewshot_train_max_abs_err=err, fewshot_train_ms=ms,
                      fewshot_train_bound_ms=b)
+            # and at the GAN metric sampler's (64² rays, 48+48)
+            for i, key in enumerate(("max_abs_err", "ms", "plain_ms", "bound_ms")):
+                k[f"gan_metrics_{key}"] = {label: v[i] for label, v in
+                                           metric_checks[name].items()}
         else:
             k["launches_by_path"] = {"e4e_train": k["launches"],
-                                     "oneshot_train": os_train_launches[k["name"]],
-                                     "fewshot_train": fs_train_launches[k["name"]]}
+                                     "oneshot_train": os_train_launches[name],
+                                     "fewshot_train": fs_train_launches[name], **later}
             # the checks and times at the one-shot and few-shot training
-            # paths' shapes (batch 2 and batch 1, S=48)
+            # paths' shapes (batch 2 and batch 1, S=48) and the projector's
             for path, checks in (("oneshot_train", os_train_checks),
-                                 ("fewshot_train", fs_train_checks)):
-                at = checks[k["name"]]
+                                 ("fewshot_train", fs_train_checks), ("projector", proj_checks)):
+                at = checks[name]
                 k[f"{path}_max_abs_err"] = max(e for e, _, _ in at.values())
                 k[f"{path}_ms"] = {label: ms for label, (_, ms, _) in at.items()}
                 k[f"{path}_bound_ms"] = {label: b for label, (_, _, b) in at.items()}
+            k["projector_plain_ms"] = {label: t[0] for label, t in proj_extra[name].items()}
+            k["projector_library_ms"] = {label: t[1] for label, t in proj_extra[name].items()}
     print(f"[end] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -51,6 +51,31 @@ def synthetic_assets(n_grid: int = 124, seed: int = 0) -> FaceVerseAssets:
     )
 
 
+def point_buf(tri: np.ndarray, V: int) -> np.ndarray:
+    """Per-vertex face adjacency [V, max(8, most faces at a vertex)] int64, in
+    ascending face order, padded with the index F: pair it with `tri` and
+    one degenerate face appended (`uv_model_dict`), whose normal is zero."""
+    F = len(tri)
+    v = np.asarray(tri, np.int64).reshape(-1)
+    f = np.repeat(np.arange(F), 3)
+    order = np.argsort(v, kind="stable")
+    v, f = v[order], f[order]
+    counts = np.bincount(v, minlength=V)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    buf = np.full((V, max(8, int(counts.max()))), F, np.int64)
+    buf[v, np.arange(len(v)) - start[v]] = f
+    return buf
+
+
+def uv_model_dict(assets: FaceVerseAssets) -> dict:
+    """The model-dict entries the uvRender step reads (`data/preprocess.py`)
+    for synthetic assets: 'uv_per_ver' (the grid's UV atlas), 'tri' with one
+    degenerate face appended and 'point_buf' padded with its index."""
+    V = assets.uv_per_ver.shape[0]
+    tri = np.concatenate([assets.tri, [[0, 0, 0]]], axis=0).astype(np.int32)
+    return {"uv_per_ver": assets.uv_per_ver, "tri": tri, "point_buf": point_buf(assets.tri, V)}
+
+
 def synthetic_manager(n_grid: int = 124, seed: int = 0, device="cuda"):
     """(FaceverseManager on `device` with its identity set, drive-coefficient
     bank [8, COEFF_DIM] as numpy)."""

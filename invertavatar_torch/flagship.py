@@ -259,3 +259,56 @@ def fewshot_train_batch(batch: int, T: int, res: int, z_dim: int = 512, seed: in
     return {"image": t(img), "c": t(np.broadcast_to(c[None], (batch, T, 25))),
             "v": {"uvcoords_image": t(np.broadcast_to(uvc[:, None], (batch, T, 256, 256, 3)))},
             "uv": t(uv), "z": t(z[:, :z_dim])}
+
+
+class SeededMetricDataset:
+    """`n` seeded items in the layout the metrics read (`metrics/fid.py`):
+    "image" uint8 [res, res, 3] (an 8×8 grid of seeded colours, blocky at
+    res/8 pixels, plus seeded noise), "c" [25] (the flagship camera turned
+    by a seeded yaw in ±0.3 rad and pitch in ±0.15 rad) and "v":
+    {"uvcoords_image"} (`example_inputs`' face). A stand-in for a
+    preprocessed dataset, made on the host item by item."""
+
+    def __init__(self, n: int = 64, res: int = 512, seed: int = 0):
+        self.n, self.res, self.seed = n, res, seed
+        self.path = f"seeded-metric-dataset-{n}-{res}-{seed}"
+        self._uvc = example_inputs(1)[2][0]
+        self._K = fov_to_intrinsics(18.837).numpy().reshape(9)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        rng = np.random.RandomState(self.seed * 100_003 + i)
+        grid = rng.randint(0, 256, (8, 8, 3)).astype(np.int16)
+        img = np.kron(grid, np.ones((self.res // 8, self.res // 8, 1), np.int16))
+        img = np.clip(img + rng.randint(-16, 17, img.shape), 0, 255).astype(np.uint8)
+        yaw = np.pi / 2 + rng.uniform(-0.3, 0.3)
+        pitch = np.pi / 2 + rng.uniform(-0.15, 0.15)
+        pose = lookat_camera_pose(None, yaw, pitch, [0.0, 0.0, 0.2], radius=2.7).numpy()
+        c = np.concatenate([pose.reshape(16), self._K]).astype(np.float32)
+        return {"image": img, "c": c, "v": {"uvcoords_image": self._uvc}}
+
+
+def standin_detector(seed: int = 0, device="cuda"):
+    """A seeded STAND-IN for the Inception feature detector, on `device`
+    (CUDA unless `device="cpu"` is asked for): uint8 NHWC images -> [-1, 1],
+    area-pooled to 16², a seeded random projection to 32 features and tanh
+    -> float64 numpy [N, 32]. It is not Inception: metric values through it
+    are not comparable with published ones. 32 features stay below fid64's
+    sample count, so the covariances have full rank."""
+    import torch.nn.functional as F
+
+    pool, dim = 16, 32
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    proj = (torch.randn((3 * pool * pool, dim), generator=gen) * (3 * pool * pool) ** -0.5
+            ).to(device)
+
+    def detect(images_u8: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+        x = x.permute(0, 3, 1, 2).float() / 127.5 - 1.0
+        x = F.adaptive_avg_pool2d(x, pool).flatten(1)
+        return torch.tanh(x @ proj).double().cpu().numpy()
+
+    return detect

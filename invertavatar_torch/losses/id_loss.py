@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from ..models.encoders.irse import BatchNorm, IRSETrunk
 from ..ops.resize import resize_bilinear
+from ..utils.misc import resolve_device
 from .lpips import load_torch_weights
 
 
@@ -77,7 +78,9 @@ def id_loss(backbone, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def load_arcface(path: str, rename: Optional[Mapping[str, str]] = None,
-                 device="cpu") -> ArcFaceBackbone:
+                 device="cuda") -> ArcFaceBackbone:
     """An `ArcFaceBackbone` filled from the torch state dict at `path` (the
-    published `model_ir_se50.pth` key space)."""
+    published `model_ir_se50.pth` key space), on CUDA unless `device="cpu"`
+    is asked for."""
+    device = resolve_device(device)
     return load_torch_weights(ArcFaceBackbone(), path, rename).to(device)

@@ -19,6 +19,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils.misc import resolve_device
+
 # z-score constants of the reference (networks.py:41-44)
 _MEAN = (-0.030, -0.088, -0.188)
 _STD = (0.458, 0.448, 0.450)
@@ -127,8 +129,9 @@ def load_torch_weights(module: nn.Module, path: str,
 
 
 def load_lpips(path: str, net_type: str = "alex", rename: Optional[Mapping[str, str]] = None,
-               device="cpu") -> LPIPS:
+               device="cuda") -> LPIPS:
     """An `LPIPS` filled from the torch state dict at `path` (keys `net.<i>.*`
     and `lin.<i>.1.weight`; `rename` maps other prefixes onto them, e.g.
-    `{"net.layers.": "net."}`)."""
+    `{"net.layers.": "net."}`), on CUDA unless `device="cpu"` is asked for."""
+    device = resolve_device(device)
     return load_torch_weights(LPIPS(net_type), path, rename).to(device)

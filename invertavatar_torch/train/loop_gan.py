@@ -8,8 +8,10 @@ conditioning-swap ramp) and the ADA probability -> ticks with `stats.jsonl`
 and snapshots. As in the JAX package, the snapshots hold the optimizers'
 moments, the EMA, the counters and the ADA probability (`torch.save`, one
 file), and a run resumes from one bit for bit: each step draws from a
-`torch.Generator` seeded by (seed, step index). One process and one card;
-data parallelism (DDP) is not ported yet (ROADMAP A10).
+`torch.Generator` seeded by (seed, step index). At each snapshot the
+`metric_names` metrics (`metrics/metric_main.py`) run on the EMA generator
+and land in that tick's `stats.jsonl` line as `Metrics/<name>`. One process
+and one card; data parallelism (DDP) is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -73,22 +75,46 @@ def _save_fakes(G_ema, batch, path: str) -> None:
     PIL.Image.fromarray(layout_grid(tiles, (len(tiles), 1))).save(path)
 
 
+def _eval_metrics(G_ema, metric_names, dataset, detector_fn, run_dir: str, collector) -> None:
+    """The snapshot tick's metrics (reference training_loop.py:494-503): each
+    appends its `metric-<name>.jsonl` line and reports `Metrics/<key>` to
+    this tick's statistics. A metric that raises stops the run."""
+    from ..metrics import metric_main
+    from ..metrics.fid import make_vert_conditioned_sample_fn
+
+    sample_fn = make_vert_conditioned_sample_fn(G_ema, z_dim=G_ema.backbone.mapping.z_dim,
+                                                dataset=dataset)
+    for name in metric_names:
+        entry = metric_main.calc_metric(name, run_dir=run_dir, dataset=dataset,
+                                        sample_fn=sample_fn, detector_fn=detector_fn,
+                                        cache_dir=os.path.join(run_dir, "metric-cache"))
+        for k, v in entry["results"].items():
+            print(f"metric {k} = {v:.4f}")
+            collector.report(f"Metrics/{k}", v)
+
+
 def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
               max_steps: Optional[int] = None, resume_path: Optional[str] = None,
-              augment_pipe=None, metric_names=(), on_step: Optional[Callable] = None,
-              device="cuda"):
+              augment_pipe=None, metric_names=(), metric_dataset=None, metric_detector_fn=None,
+              on_step: Optional[Callable] = None, device="cuda"):
     """Train G against D on `batch_iter`'s batches ({"image" [B, 3, R, R] in
     [-1, 1], "c" [B, 25], "v": {"uvcoords_image"}, "z" [B, z_dim]}, numpy or
     tensors on any device; micro-batches with `grad_accum`), until
     `total_kimg` or `max_steps` steps. Ticks every `kimg_per_tick` write
     `stats.jsonl`; snapshots (`snapshot-<nimg>.pt` in `run_dir`) every
     `snapshot_ticks` ticks and at `max_steps`. `resume_path` restores a
-    snapshot. `on_step(step_idx, cur_nimg, metrics)` runs after each step.
-    Runs on CUDA unless `device="cpu"` is asked for. Returns (g_state,
-    d_state, G_ema, cur_nimg)."""
-    if metric_names:
-        raise NotImplementedError("in-training metrics (FID and the rest of metrics/*) are not "
-                                  "ported yet (ROADMAP A12)")
+    snapshot. At each snapshot, each of `metric_names` (e.g. "fid50k_full")
+    runs on the EMA generator at the current neural rendering resolution,
+    with `metric_dataset` (items {"image", "c", "v"}: the real statistics
+    and the sampled labels and vertex images) and `metric_detector_fn`
+    (uint8 NHWC -> [N, D] features); its `metric-<name>.jsonl` line goes to
+    `run_dir`, the real statistics' cache to `run_dir/metric-cache`.
+    `on_step(step_idx, cur_nimg, metrics)` runs after each step. Runs on
+    CUDA unless `device="cpu"` is asked for. Returns (g_state, d_state,
+    G_ema, cur_nimg)."""
+    if metric_names and (metric_dataset is None or metric_detector_fn is None):
+        raise ValueError(f"metric_names {tuple(metric_names)} need metric_dataset and "
+                         "metric_detector_fn")
     device = resolve_device(device)
     G.to(device).train()
     D.to(device).train()
@@ -160,25 +186,29 @@ def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
 
         done = bool(max_steps) and step_idx >= max_steps
         if cur_nimg >= next_tick or done:
-            collector.update()
             dt = time.time() - tick_start
             spk = dt / max((cur_nimg - (next_tick - tick_nimg)) / 1000, 1e-8)
-            print(f"kimg {cur_nimg / 1000:.1f}  sec/kimg {spk:.1f}  "
-                  + "  ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
-            logger.write(collector, cur_nimg)
-            tick_start = time.time()
-            next_tick = cur_nimg + tick_nimg
             if (cur_nimg // tick_nimg) % cfg.snapshot_ticks == 0 or done:
                 save_checkpoint(os.path.join(cfg.run_dir, f"snapshot-{cur_nimg:08d}.pt"), {
                     "g_state": g_state.state_dict(), "d_state": d_state.state_dict(),
                     "G_ema": G_ema.state_dict(), "cur_nimg": cur_nimg, "step_idx": step_idx,
                     "augment_p": augment_p})
-                if cfg.snapshot_images:
-                    G_ema.neural_rendering_resolution = nrr
+                if cfg.snapshot_images or metric_names:  # render with the EMA weights
+                    G_ema.neural_rendering_resolution = neural_rendering_resolution(lc, cur_nimg)
                     for b_ema, b in zip(G_ema.buffers(), G.buffers()):
                         b_ema.copy_(b)
+                if cfg.snapshot_images:
                     _save_fakes(G_ema, batch, os.path.join(cfg.run_dir,
                                                            f"fakes{cur_nimg:08d}.png"))
+                if metric_names:
+                    _eval_metrics(G_ema, metric_names, metric_dataset, metric_detector_fn,
+                                  cfg.run_dir, collector)
+            collector.update()
+            print(f"kimg {cur_nimg / 1000:.1f}  sec/kimg {spk:.1f}  "
+                  + "  ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+            logger.write(collector, cur_nimg)
+            tick_start = time.time()
+            next_tick = cur_nimg + tick_nimg
         if done:
             break
     logger.close()

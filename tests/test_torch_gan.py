@@ -422,12 +422,53 @@ def test_train_gan_resumes_bitwise(tmp_path, grad_accum):
 
 
 def test_train_gan_refuses_metrics_and_many_cards(tmp_path):
-    """In-training metrics and `--gpus` above 1 raise, naming what waits."""
+    """In-training metrics without their dataset and detector raise, naming
+    what they need; `--gpus` above 1 raises, naming what waits."""
     from invertavatar_torch.cli import train_gan as cli
 
     G, D = _tiny_port_models()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="metric_dataset and metric_detector_fn"):
         train_gan(G, D, iter([]), GANTrainConfig(run_dir=str(tmp_path)),
                   metric_names=("fid50k_full",), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--gpus", "2"])
+
+
+def test_train_gan_metric_tick(tmp_path):
+    """`train_gan(metric_names=("fid64",))` with the seeded metric dataset
+    (64 items at 128²) and the stand-in detector: the snapshot after one
+    step (as JAX's `test_train_gan_metric_tick`) renders 64 samples with the EMA generator in evaluation mode
+    through the fused route (the GAN CLI's `pallas_coarse`; the plain
+    versions on the CPU), writes `metric-fid64.jsonl` and the real
+    statistics' cache, and reports `Metrics/fid64` in the same tick's
+    `stats.jsonl` line (JAX reports it after that line is written: a tick
+    late, and the last tick's never, ROADMAP C)."""
+    import json
+
+    from invertavatar_torch.flagship import SeededMetricDataset, standin_detector
+
+    torch.manual_seed(0)
+    G = TriPlaneGenerator(**_gen_cfg(_rk(gpc_reg_prob=None, det_stratified=False,
+                                         pallas_coarse=True, pooled_importance=True)))
+    D = DualDiscriminator(**D_CFG)
+    cfg = GANTrainConfig(run_dir=str(tmp_path / "run"), batch_size=2, kimg_per_tick=1,
+                         snapshot_ticks=1, snapshot_images=False,
+                         loss=pg.GANLossConfig(r1_gamma=0.0, density_reg=0.0,
+                                               neural_rendering_resolution_initial=NRR,
+                                               neural_rendering_resolution_final=None))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)  # the 64 samples' backbones: ~13 s a batch of 8 on one thread
+    try:
+        train_gan(G, D, iter([_batch(20, nchw=True)]), cfg, max_steps=1,
+                  metric_names=("fid64",), metric_dataset=SeededMetricDataset(64, 128),
+                  metric_detector_fn=standin_detector(device="cpu"), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    with open(tmp_path / "run" / "metric-fid64.jsonl") as f:
+        (line,) = f.read().strip().splitlines()
+    fid = json.loads(line)["results"]["fid64"]
+    assert np.isfinite(fid) and fid > 0
+    with open(tmp_path / "run" / "stats.jsonl") as f:
+        stats = [json.loads(x) for x in f.read().strip().splitlines()]
+    assert len(stats) == 1 and stats[-1]["Metrics/fid64"]["mean"] == fid
+    assert len(os.listdir(tmp_path / "run" / "metric-cache")) == 1

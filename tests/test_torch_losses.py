@@ -73,13 +73,13 @@ def test_lpips_loads_torch_weights_by_path(tmp_path):
     sd["net.layers.0.num_batches_tracked"] = torch.tensor(3)
     path = tmp_path / "alex.pth"
     torch.save(sd, path)
-    lp = load_lpips(str(path), "alex", rename={"net.layers.": "net."})
+    lp = load_lpips(str(path), "alex", rename={"net.layers.": "net."}, device="cpu")
     for k, v in src.state_dict().items():
         assert torch.equal(lp.state_dict()[k], v), k
     del sd["lin.4.1.weight"]
     torch.save(sd, path)
     with pytest.raises(KeyError, match="lacks 1"):
-        load_lpips(str(path), "alex", rename={"net.layers.": "net."})
+        load_lpips(str(path), "alex", rename={"net.layers.": "net."}, device="cpu")
 
 
 def _jax_arcface(seed):
@@ -117,7 +117,7 @@ def test_id_loss_matches_jax(tmp_path):
         fx_j, loss_j, fbig_j = run(variables, jnp.asarray(x), jnp.asarray(y), jnp.asarray(big))
         path = tmp_path / "model_ir_se50.pth"
         torch.save(jax_to_state_dict(variables), path)
-        bb = load_arcface(str(path))
+        bb = load_arcface(str(path), device="cpu")
         assert isinstance(bb, ArcFaceBackbone)
         assert not any(p.requires_grad for p in bb.parameters())
         with torch.no_grad():
@@ -131,3 +131,43 @@ def test_id_loss_matches_jax(tmp_path):
         if hold_loss:
             assert float(loss_j) > 0.1
             np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("res,val_range", [(176, 1.0), (193, 2.0)])
+def test_ms_ssim_matches_jax(res, val_range):
+    """MS-SSIM over five scales (an odd size drops a row at each pooling) and
+    SSIM to 1e-5 relative, the loss (1 − MS-SSIM) to 1e-5 absolute, its
+    input gradient to 1e-4 of the largest entry (float32 sums through five
+    scales of separable windows, in other orders)."""
+    from invertavatar_torch.losses.ms_ssim import ms_ssim, ms_ssim_loss, ssim
+    from invertavatar_tpu.losses import ms_ssim as jms
+
+    rng = np.random.RandomState(res)
+    x = rng.rand(2, res, res, 3).astype(np.float32) * val_range
+    y = np.clip(x + rng.randn(*x.shape).astype(np.float32) * 0.1 * val_range, 0, val_range)
+    val_j, grad_j = jax.jit(jax.value_and_grad(
+        lambda a: jms.ms_ssim_loss(a, jnp.asarray(y), val_range)))(jnp.asarray(x))
+    s_j, cs_j = jms.ssim(jnp.asarray(x), jnp.asarray(y), val_range)
+    xt = _nchw(x).requires_grad_(True)
+    val = ms_ssim_loss(xt, _nchw(y), val_range)
+    val.backward()
+    np.testing.assert_allclose(float(val), float(val_j), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(ms_ssim(_nchw(x), _nchw(y), val_range)),
+                               1.0 - float(val_j), rtol=1e-5)
+    for a, b in zip(ssim(_nchw(x), _nchw(y), val_range), (s_j, cs_j)):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
+    gj = np.moveaxis(np.asarray(grad_j), -1, 1)
+    np.testing.assert_allclose(xt.grad.numpy(), gj, atol=1e-4 * np.abs(gj).max())
+
+
+def test_weight_loaders_default_to_the_card(tmp_path, monkeypatch):
+    """`load_lpips` and `load_arcface` build on CUDA unless the CPU is asked
+    for: without a card the default raises, as every entry point's does."""
+    path = tmp_path / "alex.pth"
+    torch.save(LPIPS("alex").state_dict(), path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_lpips(str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_arcface(str(path))
+    assert next(load_lpips(str(path), device="cpu").parameters()).device.type == "cpu"
