@@ -1,15 +1,19 @@
-"""3D-GAN training CLI on one card.
+"""3D-GAN training CLI, on one card or data-parallel over several.
 
 Counterpart of `invertavatar_tpu/cli/train_gan.py` (reference
 `train_avatar_texture.py`), with the same flags: the flagship generator
 geometry with the training render budget (48+48 stochastic samples), the
 dual discriminator at 512² (6 channels, bf16 top four resolutions), the
 preprocessed dataset, optional ADA. `--dry-run` prints the resolved options
-and exits. One process on one card: `--gpus` above 1 raises until data
-parallelism is ported (ROADMAP A10).
+and the number of ranks, and exits. `--gpus N` (default: every visible card)
+spawns N ranks over NCCL, one card each, as the reference's launcher does:
+`--batch` is the global batch, each rank loads every N-th item of the
+sampler's stream (`InfiniteSampler(rank=r, num_replicas=N)`) and draws its
+rows of the global z, and the ranks run `train_gan(mesh=...)`. `--device
+cpu` runs the ranks over gloo on the CPU.
 
     python -m invertavatar_torch.cli.train_gan --outdir runs/gan \
-        --data DATA/images512x512 [--batch 4] [--aug ada] [--device cuda]
+        --data DATA/images512x512 [--batch 32] [--gpus 8] [--aug ada] [--device cuda]
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ def main(argv=None):
     p.add_argument("--outdir", required=True)
     p.add_argument("--data", required=True, help="images512x512 dir (preprocessed layout)")
     p.add_argument("--rmesh_path", default=None, help="orthRender256x256_face_eye dir")
-    p.add_argument("--gpus", type=int, default=1, help="number of cards (1)")
+    p.add_argument("--gpus", type=int, default=None,
+                   help="number of ranks, one card each (default: every visible card)")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--gamma", type=float, default=8.0, help="R1 gamma")
     p.add_argument("--glr", type=float, default=0.0025)
@@ -48,13 +53,35 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dry-run", action="store_true")
     args = p.parse_args(argv)
-    if args.gpus > 1:
-        raise NotImplementedError(f"--gpus {args.gpus}: training runs on one card until data "
-                                  "parallelism is ported (ROADMAP A10)")
+    if args.gpus is None:
+        import torch
 
+        args.gpus = max(torch.cuda.device_count(), 1) if args.device.startswith("cuda") else 1
+    if args.gpus < 1 or args.batch % args.gpus:
+        raise ValueError(f"--batch {args.batch} must split evenly over --gpus {args.gpus}")
+    rendering_kwargs = _resolve(args)[0]
+    if args.dry_run:
+        print(json.dumps({**vars(args), "ranks": args.gpus, "rendering_kwargs": rendering_kwargs},
+                         indent=2, default=str))
+        return
+    if args.gpus == 1:
+        _train(None, args)
+        return
+    import os
+
+    from ..parallel.multihost import spawn_ranks
+
+    spawn_ranks(_train, args.gpus, args.outdir, args=(args,),
+                device="cpu" if args.device == "cpu" else "cuda", timeout_s=1800,
+                threads=max(1, (os.cpu_count() or 1) // args.gpus))
+
+
+def _resolve(args):
+    """(rendering kwargs, `GANTrainConfig`, (augment pipe or None)) of the
+    flags."""
     from ..flagship import FLAGSHIP_RENDERING_KWARGS
     from ..train.gan import GANLossConfig
-    from ..train.loop_gan import GANTrainConfig, train_gan
+    from ..train.loop_gan import GANTrainConfig
 
     rendering_kwargs = dict(FLAGSHIP_RENDERING_KWARGS)
     rendering_kwargs.update(
@@ -88,20 +115,24 @@ def main(argv=None):
     cfg = GANTrainConfig(run_dir=args.outdir, total_kimg=args.kimg, batch_size=args.batch,
                          g_lr=args.glr, d_lr=args.dlr, snapshot_ticks=args.snap, seed=args.seed,
                          augment_p=augment_p0, loss=loss_cfg)
-    if args.dry_run:
-        print(json.dumps({**vars(args), "rendering_kwargs": rendering_kwargs}, indent=2,
-                         default=str))
-        return
+    return rendering_kwargs, cfg, augment_pipe
 
+
+def _train(mesh, args) -> None:
+    """Build the models and the data stream and train, as one process
+    (`mesh` None) or as rank `mesh.rank` of `mesh.world_size`."""
     import numpy as np
     import torch
 
     from ..data.dataset import AvatarDataset, InfiniteSampler, normalize_image, prefetch_batches
     from ..models.discriminator import DualDiscriminator
     from ..models.triplane import TriPlaneGenerator
+    from ..train.loop_gan import train_gan
     from ..utils.misc import resolve_device
 
-    device = resolve_device(args.device)
+    rendering_kwargs, cfg, augment_pipe = _resolve(args)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    rank, n_ranks = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     dataset = AvatarDataset(args.data, mesh_path=args.rmesh_path, resolution=512)
     torch.manual_seed(args.seed)
     with torch.device(device):
@@ -115,16 +146,18 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
 
     def collate(items):
+        # this rank's rows of the global batch's z: every rank draws all of it
+        z = rng.randn(len(items) * n_ranks, 512).astype(np.float32)[rank::n_ranks]
         return {"image": np.stack([np.transpose(normalize_image(i["image"]), (2, 0, 1))
                                    for i in items]),
                 "c": np.stack([i["c"] for i in items]),
                 "v": {"uvcoords_image": np.stack([i["uvcoords_image"] for i in items])},
-                "z": rng.randn(len(items), 512).astype(np.float32)}
+                "z": z}
 
-    batches = prefetch_batches(dataset, InfiniteSampler(len(dataset), seed=args.seed),
-                               args.batch, collate=collate)
+    sampler = InfiniteSampler(len(dataset), rank=rank, num_replicas=n_ranks, seed=args.seed)
+    batches = prefetch_batches(dataset, sampler, args.batch // n_ranks, collate=collate)
     train_gan(G, D, batches, cfg, resume_path=args.resume, augment_pipe=augment_pipe,
-              device=device)
+              device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

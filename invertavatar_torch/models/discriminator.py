@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import batch_rand, gather_rows, local_rows
 from .layers import Conv2dLayer, FullyConnectedLayer
 from .mapping import MappingNetwork
 
@@ -73,7 +74,12 @@ class MinibatchStdLayer(nn.Module):
     below it that divides the batch. The JAX package's layer (and the
     reference's) takes min(group_size, batch) and fails where that does not
     divide the batch, as in the few-shot D phase at batch 1, which scores 6
-    or 18 frames; where it runs, the two agree."""
+    or 18 frames; where it runs, the two agree. Under a data mesh the groups
+    are those of the global batch, as in JAX's one program over the mesh:
+    each rank gathers the features of every rank (`gather_rows`, a few KB at
+    the 4² epilogue) and takes the statistics of its own rows' groups. The
+    same operations run without a mesh, so that a mesh of one rank gives the
+    same bits."""
 
     def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
         super().__init__()
@@ -81,16 +87,18 @@ class MinibatchStdLayer(nn.Module):
         self.num_channels = num_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        N, C, H, W = x.shape
+        xg = gather_rows(x.float())
+        N, C, H, W = xg.shape
         G = N if self.group_size is None else next(
             g for g in range(min(self.group_size, N), 0, -1) if N % g == 0)
         F = self.num_channels
-        y = x.float().reshape(G, -1, F, C // F, H, W)
+        y = xg.reshape(G, -1, F, C // F, H, W)
         y = y - y.mean(dim=0)
         y = (y.square().mean(dim=0) + 1e-8).sqrt()
         y = y.mean(dim=(2, 3, 4))  # [n, F]
-        y = y.reshape(-1, F, 1, 1).repeat(G, 1, H, W).to(x.dtype)
-        return torch.cat([x, y], dim=1)
+        # row b = g·n + i of the (global) batch takes group i's statistics
+        y = y.index_select(0, local_rows(x.shape[0], x.device) % y.shape[0])
+        return torch.cat([x, y[:, :, None, None].expand(-1, -1, H, W).to(x.dtype)], dim=1)
 
 
 class DiscriminatorEpilogue(nn.Module):
@@ -187,8 +195,8 @@ class DualDiscriminator(_DiscriminatorCore):
         if self.c_dim > 0 and c is not None:
             c = c[:, :self.c_dim]
             if self.disc_c_noise > 0:
-                noise = torch.randn(c.shape, generator=generator, device=c.device)
-                c = c + noise * c.std(dim=0) * self.disc_c_noise
+                noise = batch_rand(c.shape, generator, c.device, normal=True)
+                c = c + noise * gather_rows(c).std(dim=0) * self.disc_c_noise
         return self._score(torch.cat([image, image_raw], dim=1), c, force_fp32=force_fp32)
 
 

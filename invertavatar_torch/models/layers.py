@@ -23,6 +23,7 @@ import torch.nn as nn
 from ..ops.bias_act import bias_act, def_gain
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.upfirdn2d import setup_filter
+from ..parallel.mesh import batch_rand
 
 
 class FullyConnectedLayer(nn.Module):
@@ -140,8 +141,8 @@ class SynthesisLayer(nn.Module):
 
         noise = None
         if self.use_noise and noise_mode == "random":
-            noise = torch.randn([x.shape[0], 1, self.resolution, self.resolution],
-                                generator=generator, device=x.device) * self.noise_strength
+            noise = batch_rand([x.shape[0], 1, self.resolution, self.resolution], generator,
+                               x.device, normal=True) * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = self.noise_const[None, None] * self.noise_strength
 

@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import mean_over_ranks
 from .layers import FullyConnectedLayer, normalize_2nd_moment
 
 
@@ -52,8 +53,10 @@ class MappingNetwork(nn.Module):
             x = getattr(self, f"fc{idx}")(x)
 
         if update_emas and self.num_ws is not None and self.w_avg_beta is not None:
-            # w_avg = mean(x).lerp(w_avg, beta), updated in place
-            self.w_avg.copy_(x.detach().mean(dim=0).lerp(self.w_avg, self.w_avg_beta))
+            # w_avg = mean(x).lerp(w_avg, beta), updated in place; under a
+            # data mesh the mean is the global batch's, as in JAX's program
+            batch_mean = mean_over_ranks(x.detach().mean(dim=0))
+            self.w_avg.copy_(batch_mean.lerp(self.w_avg, self.w_avg_beta))
 
         if self.num_ws is not None:
             x = x[:, None, :].repeat(1, self.num_ws, 1)

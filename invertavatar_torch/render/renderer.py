@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.fused_render import fused_merged_march, fused_render, tile_shape
 from ..ops.grid_sample import grid_sample
+from ..parallel.mesh import batch_rand, max_over_ranks, mean_over_ranks, min_over_ranks
 from ..ops.plane_sample import (
     coarse_window_for,
     sample_planes_windowed,
@@ -121,13 +122,14 @@ class ImportanceRenderer:
                                                     options["box_warp"])  # [B, R, 1]
             valid = ray_end > ray_start
             inf = torch.tensor(float("inf"), device=device)
-            vmin = torch.where(valid, ray_start, inf).min()
-            vmax = torch.where(valid, ray_start, -inf).max()
+            vmin = min_over_ranks(torch.where(valid, ray_start, inf).min())
+            vmax = max_over_ranks(torch.where(valid, ray_start, -inf).max())
             ray_start = torch.where(valid, ray_start, vmin)[..., None]  # [B, R, 1, 1]
             ray_end = torch.where(valid, ray_end, vmax)[..., None]
         else:
-            # dynamic near/far from the mean camera distance (the shipped renderer)
-            dist = torch.linalg.norm(ray_origins, dim=-1).mean()
+            # dynamic near/far from the mean camera distance (the shipped
+            # renderer), over the global batch under a data mesh
+            dist = mean_over_ranks(torch.linalg.norm(ray_origins, dim=-1).mean())
             ray_start, ray_end = dist - 0.45, dist + 0.6
 
         B, R, _ = ray_origins.shape
@@ -138,7 +140,7 @@ class ImportanceRenderer:
         if options.get("det_stratified", False):
             offsets = torch.full((B, R, S, 1), 0.5, device=device)
         else:
-            offsets = torch.rand((B, R, S, 1), generator=generator, device=device)
+            offsets = batch_rand((B, R, S, 1), generator, device)
         depths_coarse = base + offsets * delta
 
         Bp, n_planes, Cp, Hp, Wp = planes.shape
@@ -220,8 +222,8 @@ class ImportanceRenderer:
                 colors = out["rgb"].reshape(B, R, n, -1)
                 densities = out["sigma"].reshape(B, R, n, 1)
             if options.get("density_noise", 0) > 0 and not evaluation:
-                densities = densities + torch.randn(
-                    densities.shape, generator=generator, device=device) * options["density_noise"]
+                densities = densities + batch_rand(
+                    densities.shape, generator, device, normal=True) * options["density_noise"]
             return colors, densities
 
         n_imp = options["depth_resolution_importance"]
@@ -368,8 +370,8 @@ class ImportanceRenderer:
         else:
             # stratified u (one draw per CDF stratum): sorted by construction
             u = (torch.arange(n_importance, dtype=torch.float32, device=z_vals.device)
-                 + torch.rand((B * R, n_importance), generator=generator,
-                              device=z_vals.device)) / n_importance
+                 + batch_rand((B, R, n_importance), generator, z_vals.device).reshape(
+                     B * R, n_importance)) / n_importance
         samples = sample_pdf(z_mid, w_smooth[:, 1:-1], n_importance, u.contiguous())
         return samples.detach().reshape(B, R, n_importance, 1)
 

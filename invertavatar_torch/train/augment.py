@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.grid_sample import grid_sample
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..parallel.mesh import batch_rand
 
 WAVELETS = {
     "sym2": [-0.12940952255092145, 0.22414386804185735, 0.836516303737469, 0.48296291314469025],
@@ -146,8 +147,7 @@ class AugmentPipe:
         dp = debug_percentile
 
         def draw(*shape, normal=False):
-            fn = torch.randn if normal else torch.rand
-            return fn(shape, generator=generator, device=dev)
+            return batch_rand(shape, generator, dev, normal=normal)
 
         def gate(prob, val, default):
             take = draw(*((val.shape[0],) + (1,) * (val.ndim - 1))) < prob * p

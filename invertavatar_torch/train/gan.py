@@ -14,6 +14,13 @@ ADA probability) are computed on the host (`make_schedules`); the neural
 rendering resolution of a step (`neural_rendering_resolution`) is set on the
 generator for that step. Randomness (noise, ray strata, importance samples,
 swaps, density probes, ADA) comes from one `torch.Generator` per step.
+
+With a data mesh (`parallel/mesh.py`) each rank runs the step on its rows of
+the global batch inside `use_mesh`: per-item draws are made over the global
+batch, the swap's roll and the minibatch std see the global batch, and each
+phase's gradients are averaged over ranks (`all_reduce_grads`) before the
+optimizer's NaN scrub and step, so N ranks compute the step of one process
+on the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from ..ops.upfirdn2d import filter2d
+from ..parallel.mesh import (DataMesh, all_reduce_grads, batch_rand, gather_rows, take_rows,
+                             use_mesh)
 from .state import TrainState
 
 
@@ -101,11 +110,12 @@ def _blur(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
 def _swap_conditioning(c: torch.Tensor, swapping_prob: float,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
     """The pose label each item conditions on: its own, or (with
-    `swapping_prob`) the previous item's; zeros when swapping is off."""
-    take = torch.rand((c.shape[0], 1), generator=generator, device=c.device) < swapping_prob
+    `swapping_prob`) the previous item's of the global batch; zeros when
+    swapping is off."""
+    take = batch_rand((c.shape[0], 1), generator, c.device) < swapping_prob
     if swapping_prob < 0:
         return torch.zeros_like(c)
-    return torch.where(take, torch.roll(c, 1, dims=0), c)
+    return torch.where(take, take_rows(torch.roll(gather_rows(c), 1, dims=0)), c)
 
 
 def _grads(loss: torch.Tensor, params, **kw):
@@ -164,7 +174,7 @@ def discriminator_loss(D, gen_img: Dict[str, torch.Tensor], real_image: torch.Te
 
 
 def make_gan_train_step(G, D, cfg: GANLossConfig, nrr: int, do_greg: bool, do_dreg: bool,
-                        augment_pipe=None):
+                        augment_pipe=None, mesh: Optional[DataMesh] = None):
     """One GAN step at neural rendering resolution `nrr`, with or without the
     two regularisation phases. Returns
 
@@ -175,7 +185,9 @@ def make_gan_train_step(G, D, cfg: GANLossConfig, nrr: int, do_greg: bool, do_dr
     each phase's gradients in the parameters' `.grad` (replacing them) and,
     with `apply`, steps each optimizer (G's before the Dmain pass, as JAX
     does); without it no parameter changes, and the gradients can be read.
-    `metrics` are 0-d tensors."""
+    With `mesh` the batch is this rank's rows, the step runs inside
+    `use_mesh(mesh)` and the gradients are the mean over ranks. `metrics`
+    are 0-d tensors, this rank's."""
     g_gain = float(cfg.g_reg_interval) if do_greg else 1.0
 
     def run_G(z, c, v, sched, gen, update_emas):
@@ -187,9 +199,15 @@ def make_gan_train_step(G, D, cfg: GANLossConfig, nrr: int, do_greg: bool, do_dr
     def set_grads(params, grads):
         for p, g in zip(params, grads):
             p.grad = g
+        if mesh is not None:
+            all_reduce_grads(mesh, params)
 
     def step(g_state: TrainState, d_state: TrainState, batch: Dict, sched: Schedules,
              generator: Optional[torch.Generator] = None, apply: bool = True):
+        with use_mesh(mesh):
+            return run_step(g_state, d_state, batch, sched, generator, apply)
+
+    def run_step(g_state, d_state, batch, sched, generator, apply):
         z, c, v = batch["z"], batch["c"], batch["v"]
         g_params = [p for p in G.parameters() if p.requires_grad]
         d_params = [p for p in D.parameters() if p.requires_grad]
@@ -235,9 +253,9 @@ def density_tv(G, z, c, v, sched: Schedules, cfg: GANLossConfig,
     c_cond = _swap_conditioning(c, sched.swapping_prob, generator)
     if coords is None:
         B = z.shape[0]
-        init = torch.rand((B, 1000, 3), generator=generator, device=z.device) * 2 - 1
-        pert = init + torch.randn(init.shape, generator=generator,
-                                  device=z.device) * cfg.density_reg_p_dist
+        init = batch_rand((B, 1000, 3), generator, z.device) * 2 - 1
+        pert = init + batch_rand(init.shape, generator, z.device,
+                                 normal=True) * cfg.density_reg_p_dist
         coords = torch.cat([init, pert], dim=1)
     ws = G.mapping(z, c_cond)
     sigma = G.sample_mixed(coords, ws, v, noise_mode="random", generator=generator)["sigma"]

@@ -1,4 +1,4 @@
-"""3D-GAN training loop on one card, plain PyTorch.
+"""3D-GAN training loop, plain PyTorch, on one card or data-parallel.
 
 Counterpart of `invertavatar_tpu/train/loop_gan.py` (reference
 `training_avatar_texture/training_loop.py`): batches -> `make_gan_train_step`
@@ -10,8 +10,20 @@ moments, the EMA, the counters and the ADA probability (`torch.save`, one
 file), and a run resumes from one bit for bit: each step draws from a
 `torch.Generator` seeded by (seed, step index). At each snapshot the
 `metric_names` metrics (`metrics/metric_main.py`) run on the EMA generator
-and land in that tick's `stats.jsonl` line as `Metrics/<name>`. One process
-and one card; data parallelism (DDP) is not ported yet (ROADMAP A10).
+and land in that tick's `stats.jsonl` line as `Metrics/<name>`.
+
+With a data mesh (`parallel/mesh.py`, one process per card) the ranks start
+from rank 0's parameters, buffers and optimizer state (`replicate`; every
+rank loads a resumed snapshot), each takes its rows of the global batch and
+the step averages the gradients over ranks, draws per item over the global
+batch and keeps `w_avg` and the minibatch std global, so N ranks run the
+steps of one process at the global batch. `batch_size`, `cur_nimg` and the
+EMA's decay count the global batch. ADA's sign statistic and the reported
+statistics are summed over ranks (`Collector.sync`) before they are read.
+Rank 0 alone writes (`training_options.json`, `stats.jsonl`, snapshots,
+fakes) and runs the snapshot metrics while the others wait at a barrier;
+every snapshot first checks that the replicas agree bit for bit
+(`check_replica_consistency`).
 """
 
 from __future__ import annotations
@@ -26,6 +38,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh, local_batch, replicate
+from ..parallel.multihost import check_replica_consistency
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.misc import resolve_device, to_device
 from ..utils.stats import Collector, StatsLogger
@@ -96,7 +110,8 @@ def _eval_metrics(G_ema, metric_names, dataset, detector_fn, run_dir: str, colle
 def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
               max_steps: Optional[int] = None, resume_path: Optional[str] = None,
               augment_pipe=None, metric_names=(), metric_dataset=None, metric_detector_fn=None,
-              on_step: Optional[Callable] = None, device="cuda"):
+              on_step: Optional[Callable] = None, device="cuda",
+              mesh: Optional[DataMesh] = None):
     """Train G against D on `batch_iter`'s batches ({"image" [B, 3, R, R] in
     [-1, 1], "c" [B, 25], "v": {"uvcoords_image"}, "z" [B, z_dim]}, numpy or
     tensors on any device; micro-batches with `grad_accum`), until
@@ -110,17 +125,23 @@ def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
     (uint8 NHWC -> [N, D] features); its `metric-<name>.jsonl` line goes to
     `run_dir`, the real statistics' cache to `run_dir/metric-cache`.
     `on_step(step_idx, cur_nimg, metrics)` runs after each step. Runs on
-    CUDA unless `device="cpu"` is asked for. Returns (g_state, d_state,
-    G_ema, cur_nimg)."""
+    CUDA unless `device="cpu"` is asked for. With `mesh` (`device` is then
+    the mesh's) this process is one rank of a data-parallel run: `batch_iter`
+    yields the global batch (each rank keeps its rows, as JAX's
+    `shard_batch`) or this rank's rows (a loader sharded by rank), and
+    `metrics` are the rank's own. Returns (g_state, d_state, G_ema,
+    cur_nimg)."""
     if metric_names and (metric_dataset is None or metric_detector_fn is None):
         raise ValueError(f"metric_names {tuple(metric_names)} need metric_dataset and "
                          "metric_detector_fn")
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     G.to(device).train()
     D.to(device).train()
-    os.makedirs(cfg.run_dir, exist_ok=True)
-    with open(os.path.join(cfg.run_dir, "training_options.json"), "w") as f:
-        json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
+    if writer:
+        os.makedirs(cfg.run_dir, exist_ok=True)
+        with open(os.path.join(cfg.run_dir, "training_options.json"), "w") as f:
+            json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f, indent=2)
 
     lc = cfg.loss
     g_opt = LazyRegAdam(G.parameters(), cfg.g_lr, 0.0, cfg.beta2, 1e-8, lc.g_reg_interval)
@@ -138,6 +159,8 @@ def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
         G_ema.load_state_dict(snap["G_ema"])
         cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
         augment_p = float(snap["augment_p"])
+    if mesh is not None:
+        replicate(mesh, g_state, d_state, G_ema)
 
     steps: Dict = {}
 
@@ -145,18 +168,19 @@ def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
         key = (nrr, do_greg, do_dreg)
         if key not in steps:
             steps[key] = make_gan_train_step(G, D, lc, nrr, do_greg, do_dreg,
-                                             augment_pipe=augment_pipe)
+                                             augment_pipe=augment_pipe, mesh=mesh)
         return steps[key]
 
-    sign_real_acc = []
+    ada_stats = Collector()
     collector = Collector()
-    logger = StatsLogger(cfg.run_dir)
+    logger = StatsLogger(cfg.run_dir) if writer else None
     tick_nimg = cfg.kimg_per_tick * 1000
     next_tick = cur_nimg + tick_nimg
     tick_start = time.time()
 
     while cur_nimg < cfg.total_kimg * 1000:
-        batch = to_device(next(batch_iter), device)
+        batch = to_device(local_batch(mesh, next(batch_iter), cfg.batch_size // cfg.grad_accum),
+                          device)
         sched = make_schedules(lc, cur_nimg, augment_p=augment_p)
         nrr = neural_rendering_resolution(lc, cur_nimg)
         do_greg = step_idx % lc.g_reg_interval == 0 and lc.density_reg > 0
@@ -175,41 +199,54 @@ def train_gan(G, D, batch_iter: Iterator[Dict], cfg: GANTrainConfig,
             on_step(step_idx, cur_nimg, metrics)
 
         # the ADA heuristic: move p toward the target sign of the real logits
+        # (their mean over the interval's steps and, with a mesh, the ranks)
         if augment_pipe is not None and lc.ada_target is not None:
-            sign_real_acc.append(metrics.get("Loss/signs/real", 0.0))
+            ada_stats.report("Loss/signs/real", metrics.get("Loss/signs/real", 0.0))
             if step_idx % lc.ada_interval == 0:
-                adjust = np.sign(np.mean(sign_real_acc) - lc.ada_target) * (
+                if mesh is not None:
+                    ada_stats.sync()
+                ada_stats.update()
+                adjust = np.sign(ada_stats.mean("Loss/signs/real") - lc.ada_target) * (
                     cfg.batch_size * lc.ada_interval) / (lc.ada_kimg * 1000)
                 augment_p = max(augment_p + float(adjust), 0.0)
-                sign_real_acc = []
                 collector.report("Progress/augment", augment_p)
 
         done = bool(max_steps) and step_idx >= max_steps
         if cur_nimg >= next_tick or done:
             dt = time.time() - tick_start
             spk = dt / max((cur_nimg - (next_tick - tick_nimg)) / 1000, 1e-8)
+            if mesh is not None:
+                collector.sync()
             if (cur_nimg // tick_nimg) % cfg.snapshot_ticks == 0 or done:
-                save_checkpoint(os.path.join(cfg.run_dir, f"snapshot-{cur_nimg:08d}.pt"), {
-                    "g_state": g_state.state_dict(), "d_state": d_state.state_dict(),
-                    "G_ema": G_ema.state_dict(), "cur_nimg": cur_nimg, "step_idx": step_idx,
-                    "augment_p": augment_p})
+                if mesh is not None:
+                    check_replica_consistency(mesh, {"G": G, "D": D, "G_ema": G_ema})
+                if writer:
+                    save_checkpoint(os.path.join(cfg.run_dir, f"snapshot-{cur_nimg:08d}.pt"), {
+                        "g_state": g_state.state_dict(), "d_state": d_state.state_dict(),
+                        "G_ema": G_ema.state_dict(), "cur_nimg": cur_nimg,
+                        "step_idx": step_idx, "augment_p": augment_p})
                 if cfg.snapshot_images or metric_names:  # render with the EMA weights
                     G_ema.neural_rendering_resolution = neural_rendering_resolution(lc, cur_nimg)
                     for b_ema, b in zip(G_ema.buffers(), G.buffers()):
                         b_ema.copy_(b)
-                if cfg.snapshot_images:
+                if writer and cfg.snapshot_images:
                     _save_fakes(G_ema, batch, os.path.join(cfg.run_dir,
                                                            f"fakes{cur_nimg:08d}.png"))
-                if metric_names:
+                if writer and metric_names:
                     _eval_metrics(G_ema, metric_names, metric_dataset, metric_detector_fn,
                                   cfg.run_dir, collector)
+                if mesh is not None:  # the others wait for rank 0's metrics
+                    torch.distributed.barrier(group=mesh.group)
             collector.update()
-            print(f"kimg {cur_nimg / 1000:.1f}  sec/kimg {spk:.1f}  "
-                  + "  ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
-            logger.write(collector, cur_nimg)
+            if writer:
+                print(f"kimg {cur_nimg / 1000:.1f}  sec/kimg {spk:.1f}  "
+                      + "  ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+                logger.write(collector, cur_nimg)
             tick_start = time.time()
             next_tick = cur_nimg + tick_nimg
         if done:
             break
-    logger.close()
+    if logger is not None:
+        logger.close()
     return g_state, d_state, G_ema, cur_nimg
+

@@ -24,6 +24,15 @@ calls accumulating into one Adam step; no-grad renders run under
 (`remat`, `donate`, `grad_subtree`, `subtree_tx`) have no counterpart, nor
 has the few-shot stage's split into jitted programs (`FewshotPrograms`); its
 memory plan stays: one gradient-carrying render alive at a time.
+
+With a data mesh (`parallel/mesh.py`, one process per card) each trainer
+starts every rank from rank 0's state (`replicate`), gives each rank its
+rows of the global batch, runs each step inside `use_mesh` (per-item draws
+over the global batch, the minibatch std over the global batch; a clip's
+[chunk, item, frame] rows name their layout) and averages each optimizer's
+gradients over ranks before it steps, so N ranks run the steps of one
+process at the global batch. Rank 0 alone writes statistics (summed over
+ranks by `Collector.sync`) and snapshots, after a replica check.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ import torch
 
 from ..models.encoders.uvnet import offset_feats
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import (DataMesh, all_reduce_grads, batch_layout, local_batch, replicate,
+                             use_mesh)
+from ..parallel.multihost import check_replica_consistency
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.misc import resolve_device, to_device
 from ..utils.stats import Collector, StatsLogger
@@ -134,7 +146,11 @@ def _e4e_closures(net, fast_igen_target: str, fast_grad: str):
     return net.encode, gen_mapping, gen_synthesis, gen_target
 
 
-def _wd_step(net, wd_state: TrainState, batch, weights, do_r1: bool):
+def _opt_params(opt: torch.optim.Optimizer):
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def _wd_step(net, wd_state: TrainState, batch, weights, do_r1: bool, mesh=None):
     """One latent-discriminator update on codes of the (updated) encoder."""
     with torch.no_grad():
         ws_fake = net.encode(batch["image"])
@@ -143,18 +159,24 @@ def _wd_step(net, wd_state: TrainState, batch, weights, do_r1: bool):
     wd_state.opt.zero_grad(set_to_none=True)
     total, aux = wd_losses(wd_state.module, ws_fake, ws_real, weights, do_r1)
     total.backward()
+    if mesh is not None:
+        all_reduce_grads(mesh, _opt_params(wd_state.opt))
     wd_state.opt.step()
     return aux
 
 
 def _make_e4e_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
-                   fast_igen_target: str, fast_grad: str, split: bool):
+                   fast_igen_target: str, fast_grad: str, split: bool, mesh=None):
     encode, gen_mapping, gen_synthesis, gen_target = _e4e_closures(
         net, fast_igen_target, fast_grad)
     use_wd = weights.w_discriminator > 0
 
     def step(state: TrainState, wd_state: TrainState, batch: Dict,
              do_wd_reg: bool = False) -> Dict[str, torch.Tensor]:
+        with use_mesh(mesh):
+            return run_step(state, wd_state, batch, do_wd_reg)
+
+    def run_step(state, wd_state, batch, do_wd_reg):
         wd_apply = wd_state.module if use_wd else None
         state.opt.zero_grad(set_to_none=True)
         total, aux_r = e4e_ireal_loss(encode, gen_synthesis, wd_apply, lpips_fn, id_fn, weights,
@@ -175,25 +197,29 @@ def _make_e4e_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
             total = total + total_n
             aux.update({f"Ireal_novel/{k}": v.detach() for k, v in aux_n.items()})
         total.backward()
+        if mesh is not None:
+            all_reduce_grads(mesh, _opt_params(state.opt))
         state.opt.step()
         if use_wd:
             aux.update({k: v.detach() for k, v in
-                        _wd_step(net, wd_state, batch, weights, do_wd_reg).items()})
+                        _wd_step(net, wd_state, batch, weights, do_wd_reg, mesh).items()})
         return aux
 
     return step
 
 
 def make_e4e_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
-                        weights: InversionLossWeights):
+                        weights: InversionLossWeights, mesh: Optional[DataMesh] = None):
     """One step = Ireal + Igen (+ Ireal_novel when `multiview_id > 0` and an
     ID function is given), one backward, one Adam step, then the WD phase.
 
     Returns `step(state, wd_state, batch, do_wd_reg=False) -> aux`; `state`
     holds `net` and its `masked_adam`, `wd_state` the discriminator and its
     Adam. The batch is `{"image" [B,3,H,W] in [-1,1], "c" [B,25], "v"
-    {"uvcoords_image" [B,256,256,3]}, "z" [B,z_dim]}` on the net's device."""
-    return _make_e4e_step(net, lpips_fn, id_fn, weights, "off", "off", split=False)
+    {"uvcoords_image" [B,256,256,3]}, "z" [B,z_dim]}` on the net's device
+    (with `mesh`, this rank's rows; the gradients are the mean over
+    ranks)."""
+    return _make_e4e_step(net, lpips_fn, id_fn, weights, "off", "off", split=False, mesh=mesh)
 
 
 def make_e4e_grad_programs(net, lpips_fn: Callable, id_fn: Optional[Callable],
@@ -222,19 +248,22 @@ def _train_only(net: torch.nn.Module, opt: torch.optim.Optimizer) -> None:
         p.requires_grad_(id(p) in keep)
 
 
-def _adam_step(opt: torch.optim.Optimizer) -> None:
+def _adam_step(opt: torch.optim.Optimizer, mesh: Optional[DataMesh] = None) -> None:
     """`opt.step()` with a zero gradient for every parameter that got none:
     optax updates (and counts) every leaf of its mask on each step, so
-    torch's per-parameter step count stays optax's per-state count."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    torch's per-parameter step count stays optax's per-state count. With
+    `mesh` the gradients are averaged over ranks first."""
+    params = _opt_params(opt)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        all_reduce_grads(mesh, params)
     opt.step()
 
 
 def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
-                       fast_igen_target: str, fast_grad: str):
+                       fast_igen_target: str, fast_grad: str, mesh=None):
     target_ov = nograd_overrides(fast_igen_target)
     grad_ov = grad_overrides(fast_grad)
     G = net.generator
@@ -258,6 +287,10 @@ def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
     def step(state: TrainState, d_state: Optional[TrainState], batch: Dict,
              phase: str = "Ireal", do_r1: bool = False,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        with use_mesh(mesh):
+            return run_step(state, d_state, batch, phase, do_r1, generator)
+
+    def run_step(state, d_state, batch, phase, do_r1, generator):
         fwd = inv_forward(generator)
         if phase in ("Igen", "Ireal"):
             # only the scheduled U-Net trains: the generator, the e4e encoder,
@@ -277,7 +310,7 @@ def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
                     fwd, d_apply, lpips_fn, id_fn, weights,
                     {"image": batch["image"], "uv": batch["uv"]}, batch["c"], batch["v"])
             total.backward()
-            _adam_step(state.opt)
+            _adam_step(state.opt, mesh)
             return {f"{phase}/{k}": v.detach() for k, v in losses.items()}
 
         assert phase in ("Dgen", "Dreal") and d_state is not None, phase
@@ -301,7 +334,7 @@ def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
         total, aux = oneshot_d_loss(d_state.module, fake_pair, real_pair, batch["c"], weights,
                                     do_r1)
         total.backward()
-        _adam_step(d_state.opt)
+        _adam_step(d_state.opt, mesh)
         return {f"{phase}/{k}": v.detach() for k, v in aux.items()}
 
     return step
@@ -309,7 +342,7 @@ def _make_oneshot_step(net, lpips_fn, id_fn, weights: InversionLossWeights,
 
 def make_oneshot_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
                             weights: InversionLossWeights, fast_igen_target: str = "off",
-                            fast_grad: str = "off"):
+                            fast_grad: str = "off", mesh: Optional[DataMesh] = None):
     """The one-shot U-Net stage's step. Returns `step(state, d_state, batch,
     phase="Ireal", do_r1=False, generator=None) -> aux`:
       * `phase` "Igen" or "Ireal": the inverter's loss (the adversarial term
@@ -326,8 +359,9 @@ def make_oneshot_train_step(net, lpips_fn: Callable, id_fn: Optional[Callable],
     the student render (`train/fast_render.py`); `generator` feeds the
     renderer's stochastic strata (none under those overrides). The batch is
     `{"image" [B,3(+mask),H,W], "c", "v", "uv" [B,6,256,256], "z", "gen_uv"}`
-    on the net's device."""
-    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad)
+    on the net's device (with `mesh`, this rank's rows; each optimizer
+    steps on the mean of the ranks' gradients)."""
+    return _make_oneshot_step(net, lpips_fn, id_fn, weights, fast_igen_target, fast_grad, mesh)
 
 
 def oneshot_phase_schedule(batch_idx: int, d_reg_interval: int = 16):
@@ -358,14 +392,20 @@ class InversionTrainConfig:
 def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
               cfg: InversionTrainConfig, lpips_fn: Callable, id_fn: Optional[Callable] = None,
               max_steps: Optional[int] = None, resume_path: Optional[str] = None,
-              device="cuda"):
+              on_step: Optional[Callable] = None, device="cuda",
+              mesh: Optional[DataMesh] = None):
     """e4e-stage driver: `make_e4e_train_step` over `batch_iter` (dicts as
     that step takes, NCHW images in [-1, 1], on any device), with stats ticks
     every `kimg_per_tick` and snapshots (`snapshot-<nimg>.pt` in `run_dir`)
     every `snapshot_ticks` ticks and at `max_steps`. `resume_path` restores a
-    snapshot. Runs on CUDA unless `device="cpu"` is asked for. Returns the
-    (state, wd_state) it trained."""
-    device = resolve_device(device)
+    snapshot. `on_step(step_idx, cur_nimg, aux)` runs after each step. Runs
+    on CUDA unless `device="cpu"` is asked for. With `mesh` (`device` is
+    then the mesh's) this process is one rank of a data-parallel run over
+    the global batch `cfg.batch_size`: `batch_iter` yields the global batch
+    or this rank's rows, and `aux` is the rank's own. Returns the (state,
+    wd_state) it trained."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     torch.manual_seed(cfg.seed)
     net.to(device)
     wd_module.to(device)
@@ -378,10 +418,12 @@ def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
         state.load_state_dict(snap["state"])
         wd_state.load_state_dict(snap["wd_state"])
         cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+    if mesh is not None:
+        replicate(mesh, state, wd_state)
 
-    step_fn = make_e4e_train_step(net, lpips_fn, id_fn, cfg.weights)
+    step_fn = make_e4e_train_step(net, lpips_fn, id_fn, cfg.weights, mesh=mesh)
     collector = Collector()
-    logger = StatsLogger(cfg.run_dir)
+    logger = StatsLogger(cfg.run_dir) if writer else None
     tick_nimg = cfg.kimg_per_tick * 1000
     next_tick = cur_nimg + tick_nimg
     t0 = time.time()
@@ -392,26 +434,49 @@ def train_e4e(net, wd_module: torch.nn.Module, batch_iter: Iterator[Dict],
             "cur_nimg": cur_nimg, "step_idx": step_idx})
 
     while cur_nimg < cfg.total_kimg * 1000:
-        batch = to_device(next(batch_iter), device)
+        batch = to_device(local_batch(mesh, next(batch_iter), cfg.batch_size), device)
         do_reg = step_idx % cfg.wd_reg_interval == 0 and cfg.weights.w_discriminator > 0
         aux = step_fn(state, wd_state, batch, do_wd_reg=do_reg)
         cur_nimg += cfg.batch_size
         step_idx += 1
         for k, v in aux.items():
             collector.report(k, v.float().cpu().numpy())
+        if on_step is not None:
+            on_step(step_idx - 1, cur_nimg, aux)
         done = bool(max_steps) and step_idx >= max_steps
         if cur_nimg >= next_tick or done:
-            collector.update()
-            print(f"kimg {cur_nimg / 1000:.1f} ({time.time() - t0:.0f}s) "
-                  + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
-            logger.write(collector, cur_nimg)
+            _write_stats(collector, logger, mesh, f"kimg {cur_nimg / 1000:.1f} "
+                         f"({time.time() - t0:.0f}s)", cur_nimg)
             next_tick = cur_nimg + tick_nimg
             if (cur_nimg // tick_nimg) % cfg.snapshot_ticks == 0 or done:
-                snapshot(f"snapshot-{cur_nimg:08d}.pt")
+                _checked_snapshot(mesh, {"net": net, "wd": wd_module}, writer,
+                                  lambda: snapshot(f"snapshot-{cur_nimg:08d}.pt"))
         if done:
             break
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state, wd_state
+
+
+def _write_stats(collector: Collector, logger: Optional[StatsLogger], mesh, head: str,
+                 nimg: int) -> None:
+    """Close a statistics tick: sum the pending statistics over ranks (with
+    `mesh`), then rank 0 prints and appends the `stats.jsonl` line."""
+    if mesh is not None:
+        collector.sync()
+    collector.update()
+    if logger is not None:
+        print(head + " " + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
+        logger.write(collector, nimg)
+
+
+def _checked_snapshot(mesh, modules: Dict, writer: bool, save: Callable) -> None:
+    """A snapshot: with `mesh` the replicas are checked bit for bit first;
+    rank 0 alone writes."""
+    if mesh is not None:
+        check_replica_consistency(mesh, {k: m for k, m in modules.items() if m is not None})
+    if writer:
+        save()
 
 
 def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator[Dict],
@@ -429,13 +494,13 @@ def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator
     `snapshot-final.pt` in `run_dir`, at the end; `resume_path` restores
     one. `fast_igen_target` / `fast_grad` pick the renders' overrides;
     `on_step(step_idx, cur_nimg, aux)` runs after each step. Runs on CUDA
-    unless `device="cpu"` is asked for; `mesh` (data parallelism) is not
-    ported (ROADMAP A10). Returns (state, d_state), `state.opt` the last
-    trained U-Net's."""
-    if mesh is not None:
-        raise NotImplementedError("train_oneshot runs on one device: data parallelism over a "
-                                  "mesh is ROADMAP A10")
-    device = resolve_device(device)
+    unless `device="cpu"` is asked for. With `mesh` (`device` is then the
+    mesh's) this process is one rank of a data-parallel run over the global
+    batch `cfg.batch_size`: `batch_iter` yields the global batch or this
+    rank's rows, and `aux` is the rank's own. Returns (state, d_state),
+    `state.opt` the last trained U-Net's."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     net.to(device)
     opts = {"tex": masked_adam(net, cfg.lr, oneshot_tex_trainable),
             "tri": masked_adam(net, cfg.lr, oneshot_tri_trainable)}
@@ -453,15 +518,17 @@ def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator
         if d_state is not None:
             d_state.load_state_dict(snap["d_state"])
         cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+    if mesh is not None:
+        replicate(mesh, net, *opts.values(), d_state)
 
     step_fn = make_oneshot_train_step(net, lpips_fn, id_fn, cfg.weights, fast_igen_target,
-                                      fast_grad)
+                                      fast_grad, mesh=mesh)
     collector = Collector()
-    logger = StatsLogger(cfg.run_dir)
+    logger = StatsLogger(cfg.run_dir) if writer else None
     state = TrainState(net, opts["tex"])
     t0 = time.time()
     while (max_steps is None or step_idx < max_steps) and cur_nimg < cfg.total_kimg * 1000:
-        batch = to_device(next(batch_iter), device)
+        batch = to_device(local_batch(mesh, next(batch_iter), cfg.batch_size), device)
         i_phase, unet, d_phase, do_r1 = oneshot_phase_schedule(step_idx, cfg.wd_reg_interval)
         state = TrainState(net, opts[unet])
         aux = step_fn(state, d_state, batch, phase=i_phase,
@@ -476,16 +543,20 @@ def train_oneshot(net, d_module: Optional[torch.nn.Module], batch_iter: Iterator
         if on_step is not None:
             on_step(step_idx - 1, cur_nimg, aux)
         if step_idx % 50 == 0 or (max_steps and step_idx >= max_steps):
-            collector.update()
-            print(f"kimg {cur_nimg / 1000:.1f} ({time.time() - t0:.0f}s) "
-                  + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
-            logger.write(collector, cur_nimg)
-    payload = {"net": net.state_dict(), "opt": {k: o.state_dict() for k, o in opts.items()},
-               "cur_nimg": cur_nimg, "step_idx": step_idx}
-    if d_state is not None:
-        payload["d_state"] = d_state.state_dict()
-    save_checkpoint(os.path.join(cfg.run_dir, "snapshot-final.pt"), payload)
-    logger.close()
+            _write_stats(collector, logger, mesh, f"kimg {cur_nimg / 1000:.1f} "
+                         f"({time.time() - t0:.0f}s)", cur_nimg)
+
+    def save():
+        payload = {"net": net.state_dict(), "opt": {k: o.state_dict() for k, o in opts.items()},
+                   "cur_nimg": cur_nimg, "step_idx": step_idx}
+        if d_state is not None:
+            payload["d_state"] = d_state.state_dict()
+        save_checkpoint(os.path.join(cfg.run_dir, "snapshot-final.pt"), payload)
+
+    _checked_snapshot(mesh, {"net": net, "D": d_module if d_state is not None else None},
+                      writer, save)
+    if logger is not None:
+        logger.close()
     return state, d_state
 
 
@@ -515,7 +586,8 @@ def _fewshot_prefix(net, batch: Dict, Tc: int, nograd_ov, generator, synthetic: 
     `synthetic`, "targets" (each chunk's "image", "feature_image" and
     "triplane", [B·Tc, ...]; all kept, ~25 MB a frame at flagship width,
     where the JAX package re-renders each before its gradient to spare a
-    TPU's memory)."""
+    TPU's memory). The clip renders' rows are [item, frame]
+    (`batch_layout(inner=Tc)` under a data mesh)."""
     G = net.generator
     vid_c = batch["c"]
     B, T = vid_c.shape[:2]
@@ -527,9 +599,10 @@ def _fewshot_prefix(net, batch: Dict, Tc: int, nograd_ov, generator, synthetic: 
         gt_tex, gt_static = net.backbone_feats(ws_gen)
         out["targets"] = []
         for i in range(n):
-            t = net.render_clip(ws_gen, gt_tex, gt_static, sl(vid_c, i), v_sl(i),
-                                evaluation=nograd_ov is not None, rendering_overrides=nograd_ov,
-                                generator=generator)
+            with batch_layout(inner=Tc):
+                t = net.render_clip(ws_gen, gt_tex, gt_static, sl(vid_c, i), v_sl(i),
+                                    evaluation=nograd_ov is not None,
+                                    rendering_overrides=nograd_ov, generator=generator)
             out["targets"].append({k: t[k] for k in ("image", "feature_image", "triplane")})
         frames = torch.cat([t["image"].reshape(B, Tc, *t["image"].shape[1:])
                             for t in out["targets"]], dim=1)
@@ -542,9 +615,11 @@ def _fewshot_prefix(net, batch: Dict, Tc: int, nograd_ov, generator, synthetic: 
     tex, static = net.backbone_feats(ws)
     r_tex = r_tri = None
     for i in range(n):
-        uv_in, tri_in, _ = net.multiT_chunk_inputs(sl(frames, i), sl(vid_c, i), v_sl(i),
-                                                   sl(batch["uv"], i), ws, tex, static,
-                                                   nograd_render=nograd_ov, generator=generator)
+        with batch_layout(inner=Tc):
+            uv_in, tri_in, _ = net.multiT_chunk_inputs(sl(frames, i), sl(vid_c, i), v_sl(i),
+                                                       sl(batch["uv"], i), ws, tex, static,
+                                                       nograd_render=nograd_ov,
+                                                       generator=generator)
         if i < n - 1:
             r_tex, r_tri = net.multiT_chunk_state(uv_in, tri_in, r_tex, r_tri)
     out.update(ws=ws, tex=tex, uv_in=uv_in, tri_in=tri_in, r_tex=r_tex, r_tri=r_tri)
@@ -553,7 +628,7 @@ def _fewshot_prefix(net, batch: Dict, Tc: int, nograd_ov, generator, synthetic: 
 
 def make_fewshot_train_step(net, lpips_fn: Callable, weights: InversionLossWeights,
                             frm_per_chunk: int = 6, fast_no_grad: str = "off",
-                            fast_grad: str = "off"):
+                            fast_grad: str = "off", mesh: Optional[DataMesh] = None):
     """The few-shot stage's I phase. Returns `step(state, batch,
     do_igen=False, multiT=False, fake_idx=None, d_module=None,
     generator=None) -> aux`; `state` holds the `InversionNet` and one
@@ -579,7 +654,8 @@ def make_fewshot_train_step(net, lpips_fn: Callable, weights: InversionLossWeigh
         averaged over chunks (the adversarial term through `d_module`, frozen
         here, with `adv > 0`).
     No-grad renders take the overrides `fast_no_grad`; `generator` feeds the
-    renderer's stochastic draws."""
+    renderer's stochastic draws. With `mesh` the clip is this rank's items
+    and the decoder steps on the mean of the ranks' gradients."""
     nograd_ov = nograd_overrides(fast_no_grad)
     grad_ov = grad_overrides(fast_grad)
     G = net.generator
@@ -587,6 +663,10 @@ def make_fewshot_train_step(net, lpips_fn: Callable, weights: InversionLossWeigh
     def step(state: TrainState, batch: Dict, do_igen: bool = False, multiT: bool = False,
              fake_idx=None, d_module: Optional[torch.nn.Module] = None,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        with use_mesh(mesh):
+            return run_step(state, batch, do_igen, multiT, fake_idx, d_module, generator)
+
+    def run_step(state, batch, do_igen, multiT, fake_idx, d_module, generator):
         vid_c = batch["c"]
         B, T = vid_c.shape[:2]
         Tc = min(frm_per_chunk, T) if multiT else T
@@ -647,7 +727,7 @@ def make_fewshot_train_step(net, lpips_fn: Callable, weights: InversionLossWeigh
         pairs = [(o, leaf.grad / n_frames) for o, leaf in zip(outs, leaves)
                  if o.requires_grad and leaf.grad is not None]
         torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-        _adam_step(state.opt)
+        _adam_step(state.opt, mesh)
         phase = "Igen" if do_igen else "Ireal"
         return {f"{phase}/{k}": v / len(groups) for k, v in aux.items()}
 
@@ -666,18 +746,25 @@ def fewshot_phase_schedule(batch_idx: int, curriculum=(6, 12, 18), d_reg_interva
 
 
 def make_fewshot_d_step(net, weights: InversionLossWeights, frm_per_chunk: int = 6,
-                        fast_no_grad: str = "off"):
+                        fast_no_grad: str = "off", mesh: Optional[DataMesh] = None):
     """The few-shot stage's D phase. Returns `step(d_state, batch,
     do_r1=False, generator=None) -> aux`: without gradient, the frozen
     generator's clip of `batch["z"]` (the real pairs) and the network's
     rollout over it in chunks of `frm_per_chunk`, every frame rendered with
     the last chunk's U-Net outputs (the fake pairs), all renders with the
     overrides `fast_no_grad`; then the dual discriminator's loss
-    (`oneshot_d_loss`, R1 with `do_r1`) and one step of `d_state.opt`."""
+    (`oneshot_d_loss`, R1 with `do_r1`) and one step of `d_state.opt`. With
+    `mesh` the clip is this rank's items, D's [chunk, item, frame] rows group
+    their minibatch std over the global clip batch, and D steps on the mean
+    of the ranks' gradients."""
     nograd_ov = nograd_overrides(fast_no_grad)
 
     def step(d_state: TrainState, batch: Dict, do_r1: bool = False,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        with use_mesh(mesh):
+            return run_step(d_state, batch, do_r1, generator)
+
+    def run_step(d_state, batch, do_r1, generator):
         vid_c = batch["c"]
         B, T = vid_c.shape[:2]
         Tc = min(frm_per_chunk, T)
@@ -688,10 +775,11 @@ def make_fewshot_d_step(net, weights: InversionLossWeights, frm_per_chunk: int =
             offsets, statics = net.multiT_offsets(pre["uv_in"], pre["tri_in"], pre["r_tex"],
                                                   pre["r_tri"], pre["ws"])
             texture = offset_feats(pre["tex"], offsets)
-            fakes = [net.render_clip(pre["ws"], texture, statics, sl(vid_c, i), v_sl(i),
-                                     evaluation=nograd_ov is not None,
-                                     rendering_overrides=nograd_ov, generator=generator)
-                     for i in range(T // Tc)]
+            with batch_layout(inner=Tc):
+                fakes = [net.render_clip(pre["ws"], texture, statics, sl(vid_c, i), v_sl(i),
+                                         evaluation=nograd_ov is not None,
+                                         rendering_overrides=nograd_ov, generator=generator)
+                         for i in range(T // Tc)]
         fake_pair = {"image": torch.cat([f["image"] for f in fakes]),
                      "image_raw": torch.cat([f["feature_image"][:, :3] for f in fakes])}
         real_pair = {"image": torch.cat([t["image"][:, :3] for t in pre["targets"]]),
@@ -699,10 +787,11 @@ def make_fewshot_d_step(net, weights: InversionLossWeights, frm_per_chunk: int =
         del pre, fakes, offsets, statics, texture
         d_state.module.requires_grad_(True)
         d_state.opt.zero_grad(set_to_none=True)
-        total, aux = oneshot_d_loss(d_state.module, fake_pair, real_pair, vid_c.reshape(B * T, -1),
-                                    weights, do_r1)
+        with batch_layout(outer=T // Tc, inner=Tc):
+            total, aux = oneshot_d_loss(d_state.module, fake_pair, real_pair,
+                                        vid_c.reshape(B * T, -1), weights, do_r1)
         total.backward()
-        _adam_step(d_state.opt)
+        _adam_step(d_state.opt, mesh)
         return {f"D/{k}": v.detach() for k, v in aux.items()}
 
     return step
@@ -737,13 +826,13 @@ def train_fewshot(net, clip_iter: Iterator[Dict], cfg: InversionTrainConfig, lpi
     `snapshot-final.pt` at the end, in `run_dir`; `resume_path` restores
     one. `fast_no_grad` / `fast_grad` pick the renders' overrides;
     `on_step(step_idx, cur_nimg, aux)` runs after each step. Runs on CUDA
-    unless `device="cpu"` is asked for; `mesh` (data parallelism) is not
-    ported (ROADMAP A10). Returns (state, d_state), `state.opt` the last
-    trained decoder's."""
-    if mesh is not None:
-        raise NotImplementedError("train_fewshot runs on one device: data parallelism over a "
-                                  "mesh is ROADMAP A10")
-    device = resolve_device(device)
+    unless `device="cpu"` is asked for. With `mesh` (`device` is then the
+    mesh's) this process is one rank of a data-parallel run over the global
+    batch `cfg.batch_size`: `clip_iter` yields the global batch of clips or
+    this rank's, and `aux` is the rank's own. Returns (state, d_state),
+    `state.opt` the last trained decoder's."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     net.to(device)
     opts = {"tex": masked_adam(net, cfg.lr, fewshot_tex_trainable),
             "tri": masked_adam(net, cfg.lr, fewshot_tri_trainable)}
@@ -761,25 +850,32 @@ def train_fewshot(net, clip_iter: Iterator[Dict], cfg: InversionTrainConfig, lpi
         if d_state is not None:
             d_state.load_state_dict(snap["d_state"])
         cur_nimg, step_idx = int(snap["cur_nimg"]), int(snap["step_idx"])
+    if mesh is not None:
+        replicate(mesh, net, *opts.values(), d_state)
 
     step_fn = make_fewshot_train_step(net, lpips_fn, cfg.weights, frm_per_chunk, fast_no_grad,
-                                      fast_grad)
-    d_step_fn = (make_fewshot_d_step(net, cfg.weights, frm_per_chunk, fast_no_grad)
+                                      fast_grad, mesh=mesh)
+    d_step_fn = (make_fewshot_d_step(net, cfg.weights, frm_per_chunk, fast_no_grad, mesh=mesh)
                  if d_state is not None else None)
     collector = Collector()
-    logger = StatsLogger(cfg.run_dir)
+    logger = StatsLogger(cfg.run_dir) if writer else None
 
     def snapshot(tag):
-        payload = {"net": net.state_dict(), "opt": {k: o.state_dict() for k, o in opts.items()},
-                   "cur_nimg": cur_nimg, "step_idx": step_idx}
-        if d_state is not None:
-            payload["d_state"] = d_state.state_dict()
-        save_checkpoint(os.path.join(cfg.run_dir, tag), payload)
+        def save():
+            payload = {"net": net.state_dict(),
+                       "opt": {k: o.state_dict() for k, o in opts.items()},
+                       "cur_nimg": cur_nimg, "step_idx": step_idx}
+            if d_state is not None:
+                payload["d_state"] = d_state.state_dict()
+            save_checkpoint(os.path.join(cfg.run_dir, tag), payload)
+
+        _checked_snapshot(mesh, {"net": net, "D": d_module if d_state is not None else None},
+                          writer, save)
 
     state = TrainState(net, opts["tri"])
     t0 = time.time()
     while (max_steps is None or step_idx < max_steps) and cur_nimg < cfg.total_kimg * 1000:
-        batch = to_device(next(clip_iter), device)
+        batch = to_device(local_batch(mesh, next(clip_iter), cfg.batch_size), device)
         T_max = batch["c"].shape[1]
         unet, T, do_r1 = fewshot_phase_schedule(step_idx, multiT or (T_max,) * 3,
                                                 cfg.wd_reg_interval)
@@ -811,10 +907,9 @@ def train_fewshot(net, clip_iter: Iterator[Dict], cfg: InversionTrainConfig, lpi
         if snapshot_every and step_idx % snapshot_every == 0:
             snapshot(f"snapshot-{cur_nimg:08d}.pt")
         if step_idx % 50 == 0 or (max_steps and step_idx >= max_steps):
-            collector.update()
-            print(f"kimg {cur_nimg / 1000:.2f} ({time.time() - t0:.0f}s) "
-                  + " ".join(f"{n}={collector.mean(n):.4f}" for n in collector.names()))
-            logger.write(collector, cur_nimg)
+            _write_stats(collector, logger, mesh, f"kimg {cur_nimg / 1000:.2f} "
+                         f"({time.time() - t0:.0f}s)", cur_nimg)
     snapshot("snapshot-final.pt")
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state, d_state

@@ -8,7 +8,11 @@ step updates both in place.
 The optimizer policy is the reference's (training_loop.py): Adam whose lr and
 betas are scaled by N/(N+1) when a regularisation phase runs every N steps,
 with NaN gradients zeroed and ±inf saturated to the float32 extremes first;
-`MultiSteps` accumulates micro-batch gradients around it.
+`MultiSteps` accumulates micro-batch gradients around it. Under a data mesh
+the gradients these optimizers read are already the mean over ranks: the
+step all-reduces each phase's gradients once (each micro-step's, with
+`MultiSteps`, whose running mean stays local) before calling `step`, so the
+scrub follows the all-reduce, as in the reference.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Metric accumulation and logging sinks.
 
 Counterpart of `invertavatar_tpu/utils/stats.py`: counters accumulate
-[num, sum, sum of squares] per name; `StatsLogger` appends one JSON line per
-tick to `stats.jsonl`. Runs are single-process, so there is no cross-process
-sync, and the JAX package's optional TensorBoard sink is left out.
+[num, sum, sum of squares] per name, and `sync` sums the pending triples over
+the ranks of a data-parallel run before a tick closes; `StatsLogger` appends
+one JSON line per tick to `stats.jsonl` (rank 0's). The JAX package's
+optional TensorBoard sink is left out.
 """
 
 from __future__ import annotations
@@ -29,6 +30,29 @@ class Collector:
         if arr.size == 0:
             return
         self._moments[name] += np.array([arr.size, arr.sum(), np.square(arr).sum()])
+
+    def sync(self) -> None:
+        """Sum the pending [num, sum, sum of squares] of every name over the
+        ranks of the default process group, in float64 (the reference's
+        training_stats all-reduce); a no-op without a process group. Every
+        rank calls it at the same point, having reported the same names."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        names = sorted(self._moments)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        flat = np.concatenate([np.stack([self._moments[n] for n in names]).ravel()
+                               if names else np.zeros(0), [len(names)]])
+        total = torch.from_numpy(flat).to(device)
+        dist.all_reduce(total)
+        total = total.cpu().numpy()
+        if total[-1] != len(names) * dist.get_world_size():
+            raise RuntimeError(f"Collector.sync: ranks reported different names ({names})")
+        for i, n in enumerate(names):
+            self._moments[n] = total[3 * i:3 * i + 3].copy()
 
     def update(self) -> None:
         """Close a tick: the moments reported since the last update become

@@ -812,13 +812,6 @@ def test_train_fewshot_trains_the_scheduled_decoder_and_resumes_bitwise(tmp_path
     assert "D/d_r1" in names and "Igen/adv" in names
 
 
-def test_train_fewshot_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        li.train_fewshot(_MockNet(_mock_weights(0)), iter(()),
-                         li.InversionTrainConfig(run_dir=str(tmp_path)), _lp, mesh=object(),
-                         device="cpu")
-
-
 # ------------------------------------------------ the tiny network's blocks
 
 

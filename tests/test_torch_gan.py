@@ -29,6 +29,7 @@ corrections are applied in another order; 1e-8 is 5e-6 of a step of lr
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -359,6 +360,15 @@ def _tiny_port_models(seed=0):
             DualDiscriminator(**D_CFG))
 
 
+@pytest.fixture
+def _drop_tmp_path(tmp_path):
+    """Removes `tmp_path` after the test: its runs write several snapshots of
+    ~75 MB, and a test session keeps its temporary directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.mark.usefixtures("_drop_tmp_path")
 @pytest.mark.parametrize("grad_accum", [1, 2])
 def test_train_gan_resumes_bitwise(tmp_path, grad_accum):
     """3 uninterrupted steps against 2 steps, a snapshot, and the third step
@@ -421,17 +431,25 @@ def test_train_gan_resumes_bitwise(tmp_path, grad_accum):
     assert os.path.getsize(tmp_path / "a" / "fakes00000006.png") > 1000
 
 
-def test_train_gan_refuses_metrics_and_many_cards(tmp_path):
+def test_train_gan_refuses_metrics_and_many_cards(tmp_path, capsys):
     """In-training metrics without their dataset and detector raise, naming
-    what they need; `--gpus` above 1 raises, naming what waits."""
+    what they need; `--dry-run --gpus 2` reports two ranks (each of which
+    would take half of `--batch`), and a batch that does not split over the
+    ranks raises."""
+    import json
+
     from invertavatar_torch.cli import train_gan as cli
 
     G, D = _tiny_port_models()
     with pytest.raises(ValueError, match="metric_dataset and metric_detector_fn"):
         train_gan(G, D, iter([]), GANTrainConfig(run_dir=str(tmp_path)),
                   metric_names=("fid50k_full",), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--gpus", "2"])
+    cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--gpus", "2", "--dry-run"])
+    opts = json.loads(capsys.readouterr().out)
+    assert opts["ranks"] == opts["gpus"] == 2 and opts["batch"] == 32
+    with pytest.raises(ValueError, match="split evenly"):
+        cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--gpus", "3",
+                  "--dry-run"])
 
 
 def test_train_gan_metric_tick(tmp_path):

@@ -18,6 +18,7 @@ deadlock).
 """
 
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -401,6 +402,16 @@ def test_e4e_step_pallas_matches_structured():
     assert ps.sample_planes_windowed.launches == 0
 
 
+@pytest.fixture
+def _drop_tmp_path(tmp_path):
+    """Removes `tmp_path` after the test: an e4e snapshot holds the encoder
+    and its Adam moments, about 2 GB, and a test session keeps its temporary
+    directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.mark.usefixtures("_drop_tmp_path")
 def test_train_e4e_snapshot_and_resume(tmp_path):
     """The driver runs a step on the CPU, writes its snapshot, and a second
     run resumes from it (counters and parameters restored) and takes one more

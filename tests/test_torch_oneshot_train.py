@@ -733,13 +733,6 @@ def test_train_oneshot_resumes_bitwise(tmp_path):
     assert "Dreal/d_r1" in names and "Igen/texture" in names
 
 
-def test_train_oneshot_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_oneshot(_TorchMockNet(_mock_weights(0)), None, iter(()),
-                      InversionTrainConfig(run_dir=str(tmp_path)), _lp, mesh=object(),
-                      device="cpu")
-
-
 # ------------------------------------------------------------------------ CLI
 
 
