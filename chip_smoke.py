@@ -156,7 +156,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      parameters within Adam's first-step bound; the replicas bitwise equal
      at every snapshot; each rank's launches against the counts from the
      code, and one launch of each of its kernels against the plain version;
-     s/step and peak memory per rank
+     s/step and peak memory per rank; and two negative cases that must raise
+     on every rank: `Collector.sync` with the same count of names and other
+     names, and `check_replica_consistency` on a replica with two swapped
+     entries (the same sums)
+ 26. the rest of the generator, the sinks and the legacy modules. 26a:
+     `synthesis_withCondition` at flagship width (B=1, 40+24 samples) with
+     seeded nonzero CS-SFT (scale, shift) at every resolution of both
+     backbones: B1 and B2 held against their plain versions on the call's
+     own inputs and timed, the kernel route against the exact route
+     (`pallas_exact`) within phase 5's bands, no conditions against
+     `synthesis`, phase 5's small configuration with conditions on the card
+     against the CPU; ms per call; B1 and B2 once per call. 26b:
+     `remat_stages` off, on and off again from the same weights and draws on
+     phase 10's e4e step and on phase 19's one-shot Ireal phase (batch 2):
+     losses (relative, or absolute below 1e-3) and gradients on against off
+     within a fixed bar or twice the card's own repeat, the launches against the counts from the code (each
+     grad-carrying B3 forward runs again in the recompute), peak memory and
+     ms/step. 26c: `SG3Generator` at NVlabs stylegan3-t FFHQ-1024 (1024²,
+     channel_base 32768, channel_max 512, 14 layers, 2 mapping layers),
+     seeded, B=1: finite, timed; the tests' 32² configuration on the card
+     against the CPU to 1e-4. 26d: DeepLabV3+ on ResNet-50 at 512², the MoCo
+     loss at 224², the CX loss on a 512² pair, `VideoDiscriminator` and
+     `FusionVideoDiscriminator` at 512² (2 videos of T=2): finite, timed,
+     and each at a small size on the card against the CPU to 1e-4. 26e:
+     whether `torch.utils.tensorboard` imports; one `train_gan` tick of
+     phase 16's tiny models, whose event file (with the sink) holds the
+     means of its `stats.jsonl`
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -214,6 +240,26 @@ DP_ONESHOT_STEPS = 2  # phase 25b's one-shot steps: Ireal + Dreal (R1 at step 0)
 DP_FEWSHOT_CURRICULUM = (2, 4, 4)  # phase 25b's few-shot clip lengths, chunks of 2
 DP_FEWSHOT_STEPS = 2  # T = 2 then 4; R1 at step 0
 DP_TIMEOUT_S = 600  # each collective's bound in phase 25
+N_COND_WARMUP, N_COND_TIMED = 3, 10  # synthesis_withCondition calls (phase 26a)
+N_REMAT_TIMED = 3  # timed steps of each remat_stages setting (phase 26b)
+N_MODULE_WARMUP, N_MODULE_TIMED = 2, 5  # calls of each module of phases 26c-26d
+# phase 5's small configuration (phase 26a holds it on the card against the CPU)
+SMALL_FRAME_RK = dict(depth_resolution=12, depth_resolution_importance=12, tile_shape=(16, 4))
+SMALL_FRAME_CFG = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
+                       sr_num_fp16_res=0, neural_rendering_resolution=32, channel_base=2048,
+                       channel_max=128, num_fp16_res=0, map_num_layers=2)
+# phase 5's bands, (max, mean) of |a - b|
+FRAME_BANDS = (("image_raw", 5e-2, 5e-3), ("image_depth", 5e-2, 5e-3), ("image", 1e-1, 1e-2))
+# NVlabs stylegan3 `train.py --cfg=stylegan3-t` for FFHQ-1024 (the JAX defaults)
+SG3_T_1024 = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=1024, img_channels=3,
+                  channel_base=32768, channel_max=512, num_layers=14, map_num_layers=2)
+SG3_SMALL = dict(z_dim=16, c_dim=0, w_dim=32, img_resolution=32, img_channels=3, num_layers=6,
+                 channel_base=1024, channel_max=32)
+VIDEO_SMALL = dict(c_dim=25, img_resolution=32, img_channels=3, channel_base=1024,
+                   channel_max=64, num_fp16_res=0)
+# phase 26d's full sizes: DeepLabV3+ input, MoCo input, the CX pair, the
+# video discriminators' frames
+DEEPLAB_RES, MOCO_RES, CX_RES, VIDEO_RES = 512, 224, 512, 512
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
 # the tensor cores, HBM3 rate
@@ -241,7 +287,8 @@ def device_ms(fn, kernel=None, n=N_TIMED, warmup=3, tries=3):
     call), or else the mean device time of all the ops a call launches. CUDA
     events around a call would also count the device's idle time while the
     host prepares it. A session that lost kernel records (seen now and then
-    on the card) is repeated when it kept fewer than a third of them."""
+    on the card) is repeated when it kept fewer than a third of them; after
+    `tries` such sessions CUDA events time the calls, with a note."""
     import torch
 
     for _ in range(warmup):
@@ -262,7 +309,19 @@ def device_ms(fn, kernel=None, n=N_TIMED, warmup=3, tries=3):
                 print(f"chip_smoke: note: the profiler kept {len(times)} of {n} launches of "
                       f"{kernel}; their median is used")
             return times[len(times) // 2]
-    fail(f"the profiler kept {len(times)} records of {kernel or 'a call'} in {n} calls")
+    # the profiler lost its records in every session (seen once in phase
+    # 24, late in a full run): time the calls with CUDA events, which also
+    # count the device's idle time between them
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    print(f"chip_smoke: note: the profiler kept {len(times)} records of {kernel or 'a call'} "
+          f"in {n} calls, {tries} times; CUDA events give {ms:.4f} ms per call instead")
+    return ms
 
 
 CU_SOURCES = ("fused_render", "plane_sample")
@@ -492,38 +551,64 @@ def time_earlier(torch, ps, card, earlier, label, grid, cot, planes_shape):
     print(f"[8] B3 transpose {label} kernel, again after those: {ms:.4f} ms on {card}")
 
 
+def e4e_weights():
+    """The e4e validation run's loss weights: train_e4e_real.yaml with LPIPS
+    and ID off."""
+    from invertavatar_torch.train.inversion import InversionLossWeights
+
+    return InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, w_delta=0.001, w_regular=0.0,
+                                w_discriminator=0.01, raw_l1=1.0, tri=0.001)
+
+
+def l1_distance(a, b):
+    return (a - b).abs().mean()
+
+
+def e4e_batch(torch, d, z_dim, res, seed=0):
+    """A seeded B=1 e4e batch on `d`: a U(-1, 1) image, the frontal camera,
+    its uvcoords and z."""
+    import numpy as np
+
+    from invertavatar_torch.flagship import example_inputs
+
+    z_np, c_np, uvc_np = example_inputs(1, seed=seed)
+    img = np.random.RandomState(seed).uniform(-1, 1, (1, 3, res, res)).astype(np.float32)
+    return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c_np).to(d),
+            "v": {"uvcoords_image": torch.from_numpy(uvc_np).to(d)},
+            "z": torch.from_numpy(z_np[:, :z_dim]).to(d)}
+
+
+def e4e_states(torch, net):
+    """Fresh train states of the e4e encoder (masked Adam) and of a new
+    latent discriminator."""
+    from invertavatar_torch.models.encoders import LatentCodesDiscriminator
+    from invertavatar_torch.train.loop_inversion import e4e_trainable, masked_adam
+    from invertavatar_torch.train.state import TrainState
+
+    wd = LatentCodesDiscriminator().to(next(net.parameters()).device)
+    return (TrainState(net, masked_adam(net, 1e-4, e4e_trainable)),
+            TrainState(wd, torch.optim.Adam(wd.parameters(), lr=2e-5)))
+
+
 def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     """Phases 7-10; returns the kernel records of B3 and its transpose."""
     import numpy as np
     import torch.nn.functional as F
 
-    from invertavatar_torch.flagship import example_inputs, flagship_inversion_net
+    from invertavatar_torch.flagship import flagship_inversion_net
     from invertavatar_torch.models.encoders import LatentCodesDiscriminator
     from invertavatar_torch.train.fast_render import grad_overrides
-    from invertavatar_torch.train.inversion import InversionLossWeights
-    from invertavatar_torch.train.loop_inversion import (e4e_trainable, make_e4e_grad_programs,
-                                                         masked_adam)
-    from invertavatar_torch.train.state import TrainState
+    from invertavatar_torch.train.loop_inversion import make_e4e_grad_programs
     from invertavatar_torch.utils import cuda_build
 
-    # the validation run's weights: train_e4e_real.yaml with LPIPS and ID off
-    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, w_delta=0.001, w_regular=0.0,
-                                   w_discriminator=0.01, raw_l1=1.0, tri=0.001)
-
-    def l1(a, b):
-        return (a - b).abs().mean()
+    weights = e4e_weights()
+    l1 = l1_distance
 
     def batch_on(d, z_dim, res, seed=0):
-        z_np, c_np, uvc_np = example_inputs(1, seed=seed)
-        img = np.random.RandomState(seed).uniform(-1, 1, (1, 3, res, res)).astype(np.float32)
-        return {"image": torch.from_numpy(img).to(d), "c": torch.from_numpy(c_np).to(d),
-                "v": {"uvcoords_image": torch.from_numpy(uvc_np).to(d)},
-                "z": torch.from_numpy(z_np[:, :z_dim]).to(d)}
+        return e4e_batch(torch, d, z_dim, res, seed)
 
     def states(net):
-        wd = LatentCodesDiscriminator().to(next(net.parameters()).device)
-        return (TrainState(net, masked_adam(net, 1e-4, e4e_trainable)),
-                TrainState(wd, torch.optim.Adam(wd.parameters(), lr=2e-5)))
+        return e4e_states(torch, net)
 
     # ---------------------------------------------------------------- phase 7
     cuda_build.load("plane_sample")
@@ -2576,6 +2661,7 @@ def dp_rank(mesh, ref_dir):
         return torch.load(os.path.join(ref_dir, f"{name}.pt"), map_location=dev,
                           weights_only=True)
 
+    out["negatives"] = dp_negative_cases(torch, mesh)
     G, D, init, cfg, batch = dp_gan_setup(torch, dev)
     replicate(mesh, G, D)
     m, grads, w_avg = dp_gan_step(torch, G, D, init, cfg, batch, mesh)
@@ -2724,6 +2810,14 @@ def parallel_phases(torch, dev, card):
             ranks = spawn_ranks(dp_rank, DP_RANKS, rank_dir, args=(ref_dir,), device="cuda:0",
                                 backend="gloo", timeout_s=DP_TIMEOUT_S, threads=2)
         spawn_s = time.perf_counter() - t1
+    for r, res in enumerate(ranks):
+        neg = res["negatives"]
+        print(f"[25b] rank {r}, negative cases: Collector.sync with the same count and other "
+              f"names raised {neg['collector']!r}; a replica with two swapped entries raised "
+              f"{neg['swap']!r}")
+        if not (neg["collector"] and "ranks reported different names" in neg["collector"]
+                and neg["swap"] and "replicas differ at lin.weight" in neg["swap"]):
+            fail(f"[25b] rank {r}: a negative case did not raise")
     # the first GAN step: losses (the ranks' mean), gradients, w_avg
     loss = _loss_diff({k: float(np.mean([r["gan_step"]["metrics"][k] for r in ranks]))
                        for k in refs["gan_step"]}, refs["gan_step"])
@@ -2775,6 +2869,488 @@ def parallel_phases(torch, dev, card):
           f"took {spawn_s:.1f} s from spawn to exit; 25b took {time.perf_counter() - t0:.1f} s")
     return {"dp_world1_gan": l_t, **{f"dp_{name}": [r[name]["launches"] for r in ranks]
                                       for name in ("gan", "oneshot", "fewshot")}}
+
+
+# ---------------------------------------------------------------- phase 26
+
+
+def _rel(got, ref):
+    """The largest |got - ref| over the largest |ref|."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _host_ms(torch, fn, warmup=N_MODULE_WARMUP, n=N_MODULE_TIMED):
+    """fn()'s median ms on the host clock, synchronized, after `warmup`
+    calls; and fn()'s last result."""
+    import numpy as np
+
+    for _ in range(warmup):
+        out = fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def sft_conditions(torch, backbone, device, seed, batch=1):
+    """Seeded nonzero CS-SFT (scale, shift) pairs at every resolution of a
+    backbone past 4², on half of each block's channels: scale 1 + N(0, 0.2²),
+    shift N(0, 0.1²)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for res in backbone.block_resolutions[1:]:
+        half = getattr(backbone, f"b{res}").conv1.weight.shape[1] // 2
+        scale = 1 + 0.2 * torch.randn(batch, half, res, res, generator=gen)
+        shift = 0.1 * torch.randn(batch, half, res, res, generator=gen)
+        out[res] = (scale.to(device), shift.to(device))
+    return out
+
+
+def _bands(tag, label, got, ref):
+    """Phase 5's bands on image_raw, image_depth and image."""
+    for key, max_tol, mean_tol in FRAME_BANDS:
+        e = (got[key].float() - ref[key].float()).abs()
+        print(f"{tag} {label}: {key} max {e.max().item():.3e} (< {max_tol}) mean "
+              f"{e.mean().item():.3e} (< {mean_tol})")
+        if not (_finite(got[key]) and e.max() < max_tol and e.mean() < mean_tol):
+            fail(f"{tag} {label} disagrees on {key}")
+
+
+def _finite(t):
+    return bool(t.float().isfinite().all())
+
+
+def with_condition_phase(torch, dev, card, fr, rmod):
+    """Phase 26a: `synthesis_withCondition` at flagship width with seeded
+    CS-SFT conditions on both backbones. Returns B1 and B2's launches over
+    the timed calls, and their checks at this path's shapes."""
+    from invertavatar_torch.flagship import (FLAGSHIP_RENDERING_KWARGS, example_inputs,
+                                             flagship_generator, init_flagship)
+    from invertavatar_torch.models.triplane import TriPlaneGenerator
+
+    t0 = time.perf_counter()
+    z_np, c_np, uvc_np = example_inputs(1)
+    G = init_flagship(flagship_generator(device="cuda"), seed=0)
+    z, c, uvc = (torch.from_numpy(a).to(dev) for a in (z_np, c_np, uvc_np))
+    mesh = {"uvcoords_image": uvc}
+    conds = (sft_conditions(torch, G.texture_backbone.synthesis, dev, 261),
+             sft_conditions(torch, G.backbone.synthesis, dev, 262))
+
+    def call(g, ws_, c_, mesh_, cond=(None, None)):
+        return g.synthesis_withCondition(ws_, c_, mesh_, texture_feats_conditions=cond[0],
+                                         static_feats_conditions=cond[1], noise_mode="const",
+                                         evaluation=True)
+
+    with torch.inference_mode():
+        ws = G.mapping(z, c)
+        b1, b2 = [], []
+        with recording(rmod, "fused_render", b1), recording(rmod, "fused_merged_march", b2):
+            out_k = call(G, ws, c, mesh, conds)
+        torch.cuda.synchronize()
+        if len(b1) != 1 or len(b2) != 1:
+            fail(f"[26a] a call made {len(b1)} B1 and {len(b2)} B2 calls, expected one each")
+        checks = fused_kernel_checks(torch, fr, card, "synthesis_withCondition (flagship, "
+                                     "CS-SFT)", b1[0], b2[0], timed=True, tags=("[26a]", "[26a]"))
+        del b1, b2
+        rk0 = G.rendering_kwargs
+        G.rendering_kwargs = dict(rk0, pallas_exact=True)
+        out_e = call(G, ws, c, mesh, conds)
+        G.rendering_kwargs = rk0
+        _bands("[26a]", "the kernel route against the exact route (pallas_exact) on the card",
+               out_k, out_e)
+        plain = call(G, ws, c, mesh)
+        moved = {k: _rel(out_k[k], plain[k]) for k in ("triplane", "image_raw", "image")}
+        print(f"[26a] the conditions move, of each output's largest magnitude: " +
+              ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
+        if not moved["triplane"] > 1e-3:
+            fail("[26a] the CS-SFT conditions do not move the tri-planes")
+        del plain
+        _bands("[26a]", "no conditions against `synthesis`", call(G, ws, c, mesh),
+               G.synthesis(ws, c, mesh, noise_mode="const", evaluation=True))
+        del out_e
+        reset_launch_counts()
+        ms, out = _host_ms(torch, lambda: call(G, ws, c, mesh, conds), N_COND_WARMUP,
+                           N_COND_TIMED)
+        launches = launch_counts()
+    n_calls = N_COND_WARMUP + N_COND_TIMED
+    expect = {"fused_render": n_calls, "fused_merged_march": n_calls, "plane_sample": 0,
+              "plane_sample_transpose": 0}
+    img = out["image"]
+    print(f"[26a] synthesis_withCondition at flagship width (B=1, 40+24 samples, seeded CS-SFT "
+          f"at every resolution of both backbones): {ms:.3f} ms per call (host clock, "
+          f"synchronized, median of {N_COND_TIMED} after {N_COND_WARMUP}) on {card}; image "
+          f"{tuple(img.shape)} mean {img.float().mean().item():.4f}; launches {launches}, "
+          f"expected {expect}")
+    if tuple(img.shape) != (1, 3, 512, 512) or not _finite(img):
+        fail("[26a] the image is not a finite [1, 3, 512, 512]")
+    if launches != expect:
+        fail(f"[26a] launches {launches} in {n_calls} calls, expected {expect}")
+    del G, out, out_k, ws, conds
+    torch.cuda.empty_cache()
+
+    # the small configuration on the card against the CPU (plain versions)
+    small = dict(SMALL_FRAME_CFG, rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS,
+                                                        **SMALL_FRAME_RK))
+    torch.manual_seed(1)
+    g_cpu = init_flagship(TriPlaneGenerator(**small).eval(), seed=1)
+    g_gpu = TriPlaneGenerator(**small).eval().to(dev)
+    g_gpu.load_state_dict(g_cpu.state_dict())
+    outs = []
+    for g, d in ((g_gpu, dev), (g_cpu, torch.device("cpu"))):
+        with torch.inference_mode():
+            ws = g.mapping(torch.from_numpy(z_np[:, :32]).to(d), torch.from_numpy(c_np).to(d))
+            cond = (sft_conditions(torch, g.texture_backbone.synthesis, d, 263),
+                    sft_conditions(torch, g.backbone.synthesis, d, 264))
+            o = call(g, ws, torch.from_numpy(c_np).to(d),
+                     {"uvcoords_image": torch.from_numpy(uvc_np).to(d)}, cond)
+        outs.append({k: v.float().cpu() for k, v in o.items() if torch.is_tensor(v)})
+    _bands("[26a]", "small configuration with CS-SFT, card against the CPU", *outs)
+    print(f"[26a] took {time.perf_counter() - t0:.1f} s")
+    return launches, checks
+
+
+def _grads_rel(got, ref):
+    """max |got - ref| over the largest |ref| entry, of all the gradients."""
+    scale = max(g.abs().max().item() for g in ref.values())
+    return max((got[k] - ref[k]).abs().max().item() for k in ref) / scale
+
+
+def remat_phase(torch, dev, card):
+    """Phase 26b: `remat_stages` off, on and off again from the same weights
+    and draws on phase 10's e4e step and on phase 19's one-shot Ireal phase:
+    losses and gradients, launches against the counts from the code, peak
+    memory and ms/step. Returns {path: launches over its timed steps}."""
+    import numpy as np
+
+    from invertavatar_torch.flagship import (flagship_inversion_net, oneshot_train_batch,
+                                             oneshot_train_models)
+    from invertavatar_torch.train import loop_inversion as li
+    from invertavatar_torch.train.inversion import InversionLossWeights
+    from invertavatar_torch.train.state import TrainState
+
+    def run(label, prepare, step, grads_of, per_step):
+        """(losses, gradients, ms/step, peak GiB, launches) of one setting:
+        one step for the comparison (its gradients kept on the host, out of
+        the next setting's peak), then `N_REMAT_TIMED` timed steps."""
+        results = {}
+        for setting, remat in (("off", False), ("on", True), ("off again", False)):
+            prepare(remat)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            aux = {k: float(v) for k, v in step().items()}
+            grads = grads_of()
+            reset_launch_counts()
+            ms, _ = _host_ms(torch, step, 0, N_REMAT_TIMED)
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            results[setting] = (aux, grads, ms, peak, launches)
+            b3, b3t = per_step(remat)
+            expect = {"fused_render": 0, "fused_merged_march": 0,
+                      "plane_sample": b3 * N_REMAT_TIMED,
+                      "plane_sample_transpose": b3t * N_REMAT_TIMED}
+            print(f"[26b] {label}, remat_stages {setting}: {ms:.3f} ms/step (host clock, "
+                  f"synchronized, median of {N_REMAT_TIMED}); peak {peak:.3f} GiB on {card}; "
+                  f"launches {launches}, expected {expect}; " +
+                  " ".join(f"{k}={v:.7g}" for k, v in aux.items()))
+            if launches != expect:
+                fail(f"[26b] {label}, remat_stages {setting}: launches {launches}, expected "
+                     f"{expect}")
+            if not all(np.isfinite(v) for v in aux.values()):
+                fail(f"[26b] {label}, remat_stages {setting}: a non-finite loss")
+        (a_on, g_on), (a_off, g_off), (a_rep, g_rep) = (
+            results[k][:2] for k in ("on", "off", "off again"))
+        # relative to each loss, or to 1e-3 for a smaller one: the e4e step's
+        # Igen/raw_l1 (~2e-7) is the float32 noise of two near-equal renders
+        loss = {k: abs(a_on[k] - a_off[k]) / max(abs(a_off[k]), 1e-3) for k in a_off}
+        loss_rep = {k: abs(a_rep[k] - a_off[k]) / max(abs(a_off[k]), 1e-3) for k in a_off}
+        grad, grad_rep = _grads_rel(g_on, g_off), _grads_rel(g_rep, g_off)
+        print(f"[26b] {label}: remat_stages on against off: losses rel max "
+              f"{max(loss.values()):.3e}, gradients {grad:.3e} of the largest entry; the card's "
+              f"repeat (off again): losses {max(loss_rep.values()):.3e}, gradients "
+              f"{grad_rep:.3e}; peak {results['off'][3]:.3f} -> {results['on'][3]:.3f} GiB, "
+              f"{results['off'][2]:.3f} -> {results['on'][2]:.3f} ms/step on {card}")
+        _within(f"[26b] {label}'s losses with remat_stages", loss, loss_rep, 1e-4)
+        _within(f"[26b] {label}'s gradients with remat_stages", {"grads": grad},
+                {"grads": grad_rep}, 1e-3)
+        return {setting: r[4] for setting, r in results.items()}
+
+    t0 = time.perf_counter()
+    launches = {}
+    # phase 10's e4e step: B=1, the Igen target on B3, the students on B3 +
+    # transpose; with remat_stages each grad-carrying B3 forward (one per
+    # transpose) runs again in the recompute
+    net = flagship_inversion_net(device=dev)
+    batch = e4e_batch(torch, dev, 512, 512)
+    sd0 = {k: v.clone() for k, v in net.state_dict().items()}
+    wd_sd0 = {}
+    st = {}
+
+    def prepare_e4e(remat):
+        net.load_state_dict(sd0)
+        net.generator.rendering_kwargs["remat_stages"] = remat
+        st["state"], st["wd"] = e4e_states(torch, net)
+        if wd_sd0:
+            st["wd"].module.load_state_dict(wd_sd0)
+        else:
+            wd_sd0.update({k: v.clone() for k, v in st["wd"].module.state_dict().items()})
+        st["step"] = li.make_e4e_grad_programs(net, l1_distance, None, e4e_weights(),
+                                               fast_igen_target="exact", fast_grad="pallas")
+
+    launches["e4e"] = run(
+        "phase 10's e4e step (B=1)", prepare_e4e,
+        lambda: st["step"](st["state"], st["wd"], batch, do_wd_reg=False),
+        lambda: {k: p.grad.detach().cpu() for k, p in net.encoder.named_parameters()
+                 if p.grad is not None},
+        lambda remat: (B3_PER_STEP + (B3T_PER_STEP if remat else 0), B3T_PER_STEP))
+    net.generator.rendering_kwargs.pop("remat_stages")
+    del net, batch, sd0, st
+    torch.cuda.empty_cache()
+
+    # phase 19's one-shot Ireal phase (batch 2, the tri-plane U-Net), the
+    # student render's draws from one seeded generator in every setting
+    weights = InversionLossWeights(l1=1.0, lpips=0.0, id=0.0, raw_l1=1.0, tri=0.001,
+                                   texture=0.001, adv=0.01)
+    net, D = oneshot_train_models(seed=19, device=dev)
+    batch = oneshot_train_batch(ONESHOT_BATCH, 512, seed=190, device=dev)
+    sd0 = {k: v.clone() for k, v in net.state_dict().items()}
+    dsd0 = {k: v.clone() for k, v in D.state_dict().items()}
+    st = {}
+
+    def prepare_oneshot(remat):
+        net.load_state_dict(sd0)
+        D.load_state_dict(dsd0)
+        net.generator.rendering_kwargs["remat_stages"] = remat
+        st["state"] = TrainState(net, li.masked_adam(net, 1e-4, li.oneshot_tri_trainable))
+        st["d"] = TrainState(D, torch.optim.Adam(D.parameters(), lr=2e-4))
+        st["step"] = li.make_oneshot_train_step(net, l1_distance, None, weights,
+                                                fast_igen_target="exact", fast_grad="pallas")
+
+    launches["oneshot_ireal"] = run(
+        f"phase 19's one-shot Ireal phase (batch {ONESHOT_BATCH})", prepare_oneshot,
+        lambda: st["step"](st["state"], st["d"], batch, phase="Ireal", do_r1=False,
+                           generator=torch.Generator(device=dev).manual_seed(26)),
+        lambda: {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+                 if p.grad is not None and p.requires_grad},
+        lambda remat: (4 + (2 if remat else 0), 2))
+    net.generator.rendering_kwargs.pop("remat_stages")
+    del net, D, batch, sd0, dsd0, st
+    torch.cuda.empty_cache()
+    print(f"[26b] took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _card_vs_cpu(torch, dev, tag, label, build, inputs, fn, tol):
+    """`build()`'s module (seeded, on the CPU) and its copy on the card, each
+    through `fn(module, *inputs on its device)`: the outputs (tensors, or a
+    tuple of them) within `tol` of their largest magnitude."""
+    m_cpu = build("cpu").eval()
+    m_gpu = build(dev).eval()
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    with torch.inference_mode():
+        got = fn(m_gpu, *(x.to(dev) for x in inputs))
+        ref = fn(m_cpu, *inputs)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    errs = [_rel(a, b) for a, b in zip(got, ref)]
+    print(f"{tag} {label}, card against the CPU: rel {', '.join(f'{e:.3e}' for e in errs)} "
+          f"(< {tol:.0e})")
+    if not all(_finite(a) for a in got) or not max(errs) < tol:
+        fail(f"{tag} {label} on the card disagrees with the CPU")
+
+
+def later_modules_phase(torch, dev, card):
+    """Phases 26c-26d: the StyleGAN3 generator at a published configuration,
+    DeepLabV3+ at 512², the MoCo and CX losses, the video discriminators at
+    512², each finite and timed, and each at a small size on the card against
+    the CPU."""
+    from invertavatar_torch.losses.contextual import CXLoss
+    from invertavatar_torch.losses.moco import MocoLoss
+    from invertavatar_torch.models import segmentation as seg
+    from invertavatar_torch.models.discriminator import (FusionVideoDiscriminator,
+                                                          VideoDiscriminator)
+    from invertavatar_torch.models.stylegan3 import SG3Generator
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(26)
+
+    def seeded(build, seed):
+        def make(device):
+            torch.manual_seed(seed)
+            return build(device)
+        return make
+
+    def timed(tag, label, module, inputs, fn, shape):
+        with torch.inference_mode():
+            ms, out = _host_ms(torch, lambda: fn(module, *inputs))
+        outs = out if isinstance(out, tuple) else (out,)
+        print(f"{tag} {label}: {ms:.3f} ms per call (host clock, synchronized, median of "
+              f"{N_MODULE_TIMED} after {N_MODULE_WARMUP}) on {card}; output "
+              f"{[tuple(o.shape) for o in outs]}")
+        if tuple(outs[0].shape) != shape or not all(_finite(o) for o in outs):
+            fail(f"{tag} {label}: not a finite {shape}")
+        return ms
+
+    # ---------------------------------------------------------------- 26c
+    G = seeded(lambda d: SG3Generator(**SG3_T_1024, device=d), 26)(dev).eval()
+    z = torch.randn(1, SG3_T_1024["z_dim"], generator=gen).to(dev)
+    res = SG3_T_1024["img_resolution"]
+    timed("[26c]", f"SG3Generator, stylegan3-t FFHQ-1024 ({SG3_T_1024}, "
+          f"{sum(p.numel() for p in G.parameters()) / 1e6:.1f} M parameters), B=1", G, (z,),
+          lambda m, z_: m(z_, None), (1, 3, res, res))
+    del G
+    _card_vs_cpu(torch, dev, "[26c]", "SG3Generator, the tests' 32² configuration",
+                 seeded(lambda d: SG3Generator(**SG3_SMALL, device=d), 27),
+                 (torch.randn(2, 16, generator=gen),), lambda m, z_: m(z_, None), 1e-4)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 26d
+    m = seeded(lambda d: seg.deeplabv3plus_resnet50(num_classes=21, device=d), 28)(dev).eval()
+    timed("[26d]", f"DeepLabV3+ on ResNet-50, 21 classes, output stride 8, {DEEPLAB_RES}², B=1",
+          m, (torch.rand(1, 3, DEEPLAB_RES, DEEPLAB_RES, generator=gen).to(dev),),
+          lambda m_, x: m_(x)["out"], (1, 21, DEEPLAB_RES, DEEPLAB_RES))
+    del m
+    for name in ("deeplabv3_resnet50", "deeplabv3plus_resnet50"):
+        _card_vs_cpu(torch, dev, "[26d]", f"{name} at 64²",
+                     seeded(lambda d, n=name: getattr(seg, n)(num_classes=7, device=d), 29),
+                     (torch.rand(2, 3, 64, 64, generator=gen),),
+                     lambda m_, x: (m_(x)["out"], m_(x)["low_level"]), 1e-4)
+    moco = seeded(lambda d: MocoLoss(device=d), 30)(dev)
+    imgs = tuple(torch.rand(2, 3, MOCO_RES, MOCO_RES, generator=gen).to(dev) for _ in range(3))
+    timed("[26d]", f"MocoLoss (ResNet-50 at 224², 3 {MOCO_RES}² images of batch 2)", moco, imgs,
+          lambda m_, *x: m_(*x), ())
+    del moco
+    _card_vs_cpu(torch, dev, "[26d]", "MocoLoss features of 64² images",
+                 seeded(lambda d: MocoLoss(device=d), 31),
+                 (torch.rand(2, 3, 64, 64, generator=gen),), lambda m_, x: m_.extract_feats(x),
+                 1e-4)
+    cx = seeded(lambda d: CXLoss(device=d), 32)(dev)
+    pair = tuple(torch.rand(1, 3, CX_RES, CX_RES, generator=gen).to(dev) for _ in range(2))
+    timed("[26d]", f"CXLoss on a {CX_RES}² pair (above 256² resized to 256²: VGG19 relu3_4 at "
+          "64², a 4096 x 4096 affinity)", cx, pair, lambda m_, x, y: m_(x, y), ())
+    del cx
+    _card_vs_cpu(torch, dev, "[26d]", "CXLoss on a 64² pair",
+                 seeded(lambda d: CXLoss(device=d), 33),
+                 tuple(torch.rand(1, 3, 64, 64, generator=gen) for _ in range(2)),
+                 lambda m_, x, y: m_(x, y), 1e-4)
+    B, T = 2, 2
+    frames = torch.rand(B * T, 3, VIDEO_RES, VIDEO_RES, generator=gen).to(dev) * 2 - 1
+    Ts = torch.tensor([[0.0, 3.0], [5.0, 6.0]], device=dev)
+    cams = torch.randn(B, T, 25, generator=gen).to(dev)
+    for cls in (VideoDiscriminator, FusionVideoDiscriminator):
+        d = seeded(lambda d_, c=cls: c(c_dim=25, img_resolution=VIDEO_RES, img_channels=3,
+                                        device=d_), 34)(dev).eval()
+        timed("[26d]", f"{cls.__name__} at {VIDEO_RES}², {B} videos of T={T}, bf16 top 4 "
+              "resolutions",
+              d, ({"image": frames}, Ts, cams), lambda m_, i, t, c: m_(i, t, c), (B, 1))
+        del d
+        small = (torch.rand(B * T, 3, 32, 32, generator=gen) * 2 - 1, Ts.cpu(),
+                 torch.randn(B, T, 25, generator=gen))
+        _card_vs_cpu(torch, dev, "[26d]", f"{cls.__name__} at 32²",
+                     seeded(lambda d_, c=cls: c(**VIDEO_SMALL, device=d_), 35), small,
+                     lambda m_, x, t, c: m_({"image": x}, t, c), 1e-4)
+    del frames, cams
+    torch.cuda.empty_cache()
+    print(f"[26c-d] took {time.perf_counter() - t0:.1f} s")
+
+
+def tensorboard_phase(torch, dev, card):
+    """Phase 26e: whether `torch.utils.tensorboard` imports here, and one
+    `train_gan` tick of phase 16's tiny models: its `stats.jsonl` and, with
+    the sink, its event file holding the same means."""
+    import glob
+    import tempfile
+
+    from invertavatar_torch.models.discriminator import DualDiscriminator
+    from invertavatar_torch.models.triplane import TriPlaneGenerator
+    from invertavatar_torch.train import gan as pg
+    from invertavatar_torch.train.loop_gan import GANTrainConfig, train_gan
+
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        why = None
+    except Exception as e:  # the optional sink's import, reported
+        why = f"{type(e).__name__}: {e}"
+    print(f"[26e] torch.utils.tensorboard " + ("imports: the sink is on" if why is None else
+                                                f"does not import ({why}): no sink"))
+    rk = {"superresolution_module": "x.SuperresolutionHybrid2X", "c_gen_conditioning_zero": False,
+          "c_scale": 1.0, "superresolution_noise_mode": "random", "density_reg": 0.25,
+          "density_reg_p_dist": 0.004, "reg_type": "l1", "decoder_lr_mul": 1.0,
+          "sr_antialias": True, "depth_resolution": 8, "depth_resolution_importance": 8,
+          "box_warp": 1.0, "det_stratified": False}
+    torch.manual_seed(26)
+    with torch.device(dev):
+        G = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,
+                              rendering_kwargs=rk, neural_rendering_resolution=32,
+                              channel_base=1024, channel_max=64, map_num_layers=2)
+        D = DualDiscriminator(c_dim=25, img_resolution=128, img_channels=6, channel_base=1024,
+                              channel_max=64, num_fp16_res=0)
+    batch = gan_batch(torch, dev, 2, 128, 32, 26)
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = GANTrainConfig(run_dir=run_dir, batch_size=2, snapshot_images=False,
+                             loss=pg.GANLossConfig(neural_rendering_resolution_initial=32,
+                                                   neural_rendering_resolution_final=None))
+        train_gan(G, D, iter([batch]), cfg, max_steps=1, device=dev)
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            (entry,) = [json.loads(line) for line in f]
+        names = sorted(k for k in entry if k not in ("step", "timestamp"))
+        events = glob.glob(os.path.join(run_dir, "events.out.tfevents.*"))
+        if why is not None:
+            print(f"[26e] one train_gan tick: stats.jsonl holds {len(names)} names; event files "
+                  f"{len(events)} (expected none)")
+            if events:
+                fail("[26e] an event file without the sink")
+            return
+        from tensorboard.backend.event_processing import event_accumulator
+
+        acc = event_accumulator.EventAccumulator(run_dir)
+        acc.Reload()
+        worst = 0.0
+        for name in names:
+            (ev,) = acc.Scalars(name)
+            mean = entry[name]["mean"]
+            worst = max(worst, abs(ev.value - mean) / max(abs(mean), 1e-30))
+            if ev.step != entry["step"]:
+                fail(f"[26e] {name} at step {ev.step}, stats.jsonl at {entry['step']}")
+        print(f"[26e] one train_gan tick: {len(events)} event file, {len(names)} names, each "
+              f"mean as in stats.jsonl to {worst:.3e} relative (< 1e-6, float32 events)")
+        if len(events) != 1 or sorted(acc.Tags()["scalars"]) != names or not worst < 1e-6:
+            fail("[26e] the TensorBoard event file does not hold stats.jsonl's means")
+
+
+def dp_negative_cases(torch, mesh):
+    """Phase 25b's negative cases on every rank: `Collector.sync` with the
+    same count and other names on each rank, and `check_replica_consistency`
+    on a `Linear` whose last rank swapped two weight entries (equal sums).
+    Returns the text each raised, or None."""
+    from invertavatar_torch.parallel.multihost import check_replica_consistency
+    from invertavatar_torch.utils.stats import Collector
+
+    out = {}
+    col = Collector()
+    col.report(f"Loss/rank{mesh.rank}", 1.0)
+    try:
+        col.sync()
+        out["collector"] = None
+    except RuntimeError as e:
+        out["collector"] = str(e)
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(4, 3).to(mesh.device)
+    if mesh.rank == mesh.world_size - 1:
+        with torch.no_grad():
+            w = lin.weight.view(-1)
+            w[[0, 5]] = w[[5, 0]].clone()
+    try:
+        check_replica_consistency(mesh, {"lin": lin})
+        out["swap"] = None
+    except AssertionError as e:
+        out["swap"] = str(e)
+    return out
 
 
 def main(argv=None):
@@ -2842,11 +3418,8 @@ def main(argv=None):
     del planes
 
     # ---------------------------------------------------------------- phase 5
-    small_rk = dict(FLAGSHIP_RENDERING_KWARGS, depth_resolution=12,
-                    depth_resolution_importance=12, tile_shape=(16, 4))
-    small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
-                 sr_num_fp16_res=0, rendering_kwargs=small_rk, neural_rendering_resolution=32,
-                 channel_base=2048, channel_max=128, num_fp16_res=0, map_num_layers=2)
+    small = dict(SMALL_FRAME_CFG, rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS,
+                                                        **SMALL_FRAME_RK))
     torch.manual_seed(1)
     g_cpu = init_flagship(TriPlaneGenerator(**small).eval(), seed=1)
     g_gpu = TriPlaneGenerator(**small).eval().to(dev)
@@ -2859,8 +3432,7 @@ def main(argv=None):
                             {"uvcoords_image": torch.from_numpy(uvc_np).to(d)},
                             noise_mode="const", evaluation=True)
         outs.append({k: v.float().cpu() for k, v in o.items()})
-    for key, max_tol, mean_tol in (("image_raw", 5e-2, 5e-3), ("image_depth", 5e-2, 5e-3),
-                                   ("image", 1e-1, 1e-2)):
+    for key, max_tol, mean_tol in FRAME_BANDS:
         e = (outs[0][key] - outs[1][key]).abs()
         print(f"[5] small frame, card vs CPU plain versions: {key} max {e.max().item():.3e} "
               f"(< {max_tol}) mean {e.mean().item():.3e} (< {mean_tol})")
@@ -2952,13 +3524,27 @@ def main(argv=None):
 
     # ---------------------------------------------------------------- phase 25
     dp_launches = parallel_phases(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 26
+    cond_launches, cond_checks = with_condition_phase(torch, dev, card, fr, rmod)
+    remat_launches = remat_phase(torch, dev, card)
+    later_modules_phase(torch, dev, card)
+    tensorboard_phase(torch, dev, card)
+    cond_checks = {r["name"]: r for r in cond_checks}
     for k in kernels:
         name = k["name"]
         later = {"preprocess": 0, "gan_metrics": metric_launches[name],
                  "projector": proj_launches[name],
                  "dp_world1_gan": dp_launches["dp_world1_gan"][name],
                  **{f"{path}_by_rank": [r[name] for r in dp_launches[path]]
-                    for path in ("dp_gan", "dp_oneshot", "dp_fewshot")}}
+                    for path in ("dp_gan", "dp_oneshot", "dp_fewshot")},
+                 "synthesis_withCondition": cond_launches[name],
+                 **{f"{path}_remat_{setting.replace(' ', '_')}": n[name]
+                    for path, by in remat_launches.items() for setting, n in by.items()}}
+        if name in cond_checks:
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
+                k[f"synthesis_withCondition_{key}"] = cond_checks[name][key]
         if name in online_launches:
             k["launches_by_path"] = {"frame_loop": k["launches"],
                                      "online": online_launches[name],

@@ -9,10 +9,15 @@ antialiased upsampling of the raw neural render, conditioned on the camera
 through a mapping network (`cmap`). The blocks at the top `num_fp16_res`
 resolutions compute in bfloat16 (the JAX package's `dtype_fp16`) unless
 `force_fp32`; the epilogue computes in float32. Module names follow the torch
-reference (`b512.fromrgb`, `b4.fc`, `mapping.embed`, ...). The blocks are
-the reference's "resnet" architecture, the one every shipped configuration
-uses (the JAX package's "skip" and "orig" variants have no caller). The video
-discriminators are not ported yet (ROADMAP A12).
+reference (`b512.fromrgb`, `b4.fc`, `mapping.embed`, ...). The blocks take
+the reference's three architectures: "resnet" (the default, the one every
+shipped configuration uses), "skip" (each block also reads the image,
+FIR-downsampled, through its own `fromrgb`, and so does the epilogue) and
+"orig" (no residual branch). The video discriminators (`VideoDiscriminator`,
+which scores a frame pair beside their time gap, and
+`FusionVideoDiscriminator`, which fuses the frames' features mid-pyramid and
+embeds the gaps with a `TemporalDifferenceEncoder`) are in the reference and
+in no shipped configuration.
 """
 
 from __future__ import annotations
@@ -25,47 +30,64 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
+from ..ops.upfirdn2d import downsample2d, setup_filter
 from ..parallel.mesh import batch_rand, gather_rows, local_rows
+from ..utils.misc import resolve_device
 from .layers import Conv2dLayer, FullyConnectedLayer
 from .mapping import MappingNetwork
 
 
 class DiscriminatorBlock(nn.Module):
-    """fromrgb (the first block only), conv0, conv1 (down 2) and the 1×1
-    `skip` (down 2) beside them."""
+    """`fromrgb` (the first block, and every block of "skip"), conv0, conv1
+    (down 2) and, in "resnet", the 1×1 `skip` (down 2) beside them."""
 
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int, resolution: int,
-                 img_channels: int, activation: str = "lrelu",
+                 img_channels: int, architecture: str = "resnet", activation: str = "lrelu",
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
                  conv_clamp: Optional[float] = None, use_fp16: bool = False):
         super().__init__()
+        assert architecture in ("orig", "skip", "resnet"), architecture
         self.in_channels = in_channels
+        self.img_channels = img_channels
         self.resolution = resolution
+        self.architecture = architecture
         self.use_fp16 = use_fp16
-        if in_channels == 0:
+        self.register_buffer("resample_filter", setup_filter(resample_filter), persistent=False)
+        if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, activation=activation,
                                        conv_clamp=conv_clamp)
         self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, 3, activation=activation,
                                  conv_clamp=conv_clamp)
         self.conv1 = Conv2dLayer(tmp_channels, out_channels, 3, activation=activation, down=2,
                                  resample_filter=resample_filter, conv_clamp=conv_clamp)
-        self.skip = Conv2dLayer(tmp_channels, out_channels, 1, bias=False, down=2,
-                                resample_filter=resample_filter)
+        if architecture == "resnet":
+            self.skip = Conv2dLayer(tmp_channels, out_channels, 1, bias=False, down=2,
+                                    resample_filter=resample_filter)
 
-    def forward(self, x: Optional[torch.Tensor], img: torch.Tensor,
-                force_fp32: bool = False) -> torch.Tensor:
-        """x: the previous block's features (None in the first block, which
-        reads `img` instead)."""
+    def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
+                force_fp32: bool = False):
+        """x: the previous block's features (None in the first block). Returns
+        the features and the image the next block reads: the downsampled
+        image in "skip", else None once `fromrgb` has read it."""
         dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else torch.float32
-        if self.in_channels == 0:
-            x = self.fromrgb(img.to(dtype))
-        else:
+        if x is not None:
             assert x.shape[1:] == (self.in_channels, self.resolution, self.resolution), x.shape
             x = x.to(dtype)
-        y = self.skip(x, gain=math.sqrt(0.5))
-        x = y + self.conv1(self.conv0(x), gain=math.sqrt(0.5))
+        if self.in_channels == 0 or self.architecture == "skip":
+            assert img.shape[1:] == (self.img_channels, self.resolution, self.resolution), \
+                img.shape
+            img = img.to(dtype)
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = (downsample2d(img, self.resample_filter) if self.architecture == "skip"
+                   else None)
+        if self.architecture == "resnet":
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = y + self.conv1(self.conv0(x), gain=math.sqrt(0.5))
+        else:
+            x = self.conv1(self.conv0(x))
         assert x.dtype == dtype
-        return x
+        return x, img
 
 
 class MinibatchStdLayer(nn.Module):
@@ -102,16 +124,21 @@ class MinibatchStdLayer(nn.Module):
 
 
 class DiscriminatorEpilogue(nn.Module):
-    """The 4² head in float32: minibatch std, conv, fc, out, and the
-    projection onto `cmap` when conditioned."""
+    """The 4² head in float32: in "skip" the image's own `fromrgb`, then the
+    minibatch std, conv, fc, out, and the projection onto `cmap` when
+    conditioned."""
 
-    def __init__(self, in_channels: int, cmap_dim: int, resolution: int,
-                 mbstd_group_size: Optional[int] = 4, mbstd_num_channels: int = 1,
-                 activation: str = "lrelu", conv_clamp: Optional[float] = None):
+    def __init__(self, in_channels: int, cmap_dim: int, resolution: int, img_channels: int = 3,
+                 architecture: str = "resnet", mbstd_group_size: Optional[int] = 4,
+                 mbstd_num_channels: int = 1, activation: str = "lrelu",
+                 conv_clamp: Optional[float] = None):
         super().__init__()
         self.in_channels = in_channels
         self.cmap_dim = cmap_dim
         self.resolution = resolution
+        self.architecture = architecture
+        if architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, in_channels, 1, activation=activation)
         self.mbstd = (MinibatchStdLayer(mbstd_group_size, mbstd_num_channels)
                       if mbstd_num_channels > 0 else None)
         self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels, 3,
@@ -120,9 +147,12 @@ class DiscriminatorEpilogue(nn.Module):
                                       activation=activation)
         self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim)
 
-    def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, img: Optional[torch.Tensor],
+                cmap: Optional[torch.Tensor]) -> torch.Tensor:
         assert x.shape[1:] == (self.in_channels, self.resolution, self.resolution), x.shape
         x = x.float()
+        if self.architecture == "skip":
+            x = x + self.fromrgb(img.float())
         if self.mbstd is not None:
             x = self.mbstd(x)
         x = self.out(self.fc(self.conv(x).flatten(1)))
@@ -131,12 +161,38 @@ class DiscriminatorEpilogue(nn.Module):
         return x
 
 
+def _channel_plan(img_resolution: int, channel_base: int, channel_max: int, num_fp16_res: int,
+                  cmap_dim: Optional[int], c_dim: int):
+    """The block resolutions (img_resolution down to 8), the width of each
+    resolution, the lowest resolution whose blocks use bfloat16 and the
+    camera embedding's width (0 without a camera)."""
+    log2 = int(np.log2(img_resolution))
+
+    def channels(res):
+        return min(channel_base // res, channel_max)
+
+    if cmap_dim is None:
+        cmap_dim = channels(4)
+    return ([2 ** i for i in range(log2, 2, -1)], channels,
+            max(2 ** (log2 + 1 - num_fp16_res), 8), 0 if c_dim == 0 else cmap_dim)
+
+
+def _jitter_camera(c: torch.Tensor, disc_c_noise: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`c` plus `generator`'s normal draws times its per-column std over the
+    (global) batch times `disc_c_noise`."""
+    if disc_c_noise > 0:
+        noise = batch_rand(c.shape, generator, c.device, normal=True)
+        c = c + noise * gather_rows(c).std(dim=0) * disc_c_noise
+    return c
+
+
 class _DiscriminatorCore(nn.Module):
     """The block pyramid `b{res}` from `img_resolution` down to 8², the
     camera mapping and the `b4` epilogue."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
-                 channel_base: int = 32768,
+                 architecture: str = "resnet", channel_base: int = 32768,
                  channel_max: int = 512, num_fp16_res: int = 4,
                  conv_clamp: Optional[float] = 256.0, cmap_dim: Optional[int] = None,
                  disc_c_noise: float = 0.0, mbstd_group_size: Optional[int] = 4):
@@ -144,33 +200,26 @@ class _DiscriminatorCore(nn.Module):
         self.c_dim = c_dim
         self.img_resolution = img_resolution
         self.disc_c_noise = disc_c_noise
-        log2 = int(np.log2(img_resolution))
-        self.block_resolutions = [2 ** i for i in range(log2, 2, -1)]
-        fp16_resolution = max(2 ** (log2 + 1 - num_fp16_res), 8)
-
-        def channels(res):
-            return min(channel_base // res, channel_max)
-
-        if cmap_dim is None:
-            cmap_dim = channels(4)
-        if c_dim == 0:
-            cmap_dim = 0
+        self.block_resolutions, channels, fp16_resolution, cmap_dim = _channel_plan(
+            img_resolution, channel_base, channel_max, num_fp16_res, cmap_dim, c_dim)
         for res in self.block_resolutions:
             self.add_module(f"b{res}", DiscriminatorBlock(
                 channels(res) if res < img_resolution else 0, channels(res), channels(res // 2),
-                res, img_channels, conv_clamp=conv_clamp, use_fp16=res >= fp16_resolution))
+                res, img_channels, architecture=architecture, conv_clamp=conv_clamp,
+                use_fp16=res >= fp16_resolution))
         if c_dim > 0:
             self.mapping = MappingNetwork(0, c_dim, cmap_dim, num_ws=None, w_avg_beta=None)
-        self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim, 4, conv_clamp=conv_clamp,
+        self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim, 4, img_channels=img_channels,
+                                        architecture=architecture, conv_clamp=conv_clamp,
                                         mbstd_group_size=mbstd_group_size)
 
     def _score(self, img: torch.Tensor, c: Optional[torch.Tensor],
                force_fp32: bool = False) -> torch.Tensor:
         x = None
         for res in self.block_resolutions:
-            x = getattr(self, f"b{res}")(x, img, force_fp32=force_fp32)
+            x, img = getattr(self, f"b{res}")(x, img, force_fp32=force_fp32)
         cmap = self.mapping(None, c) if self.c_dim > 0 else None
-        return self.b4(x, cmap)
+        return self.b4(x, img, cmap)
 
 
 class Discriminator(_DiscriminatorCore):
@@ -193,10 +242,7 @@ class DualDiscriminator(_DiscriminatorCore):
         image = img["image"]
         image_raw = resize_bilinear(img["image_raw"], tuple(image.shape[2:]), antialias=True)
         if self.c_dim > 0 and c is not None:
-            c = c[:, :self.c_dim]
-            if self.disc_c_noise > 0:
-                noise = batch_rand(c.shape, generator, c.device, normal=True)
-                c = c + noise * gather_rows(c).std(dim=0) * self.disc_c_noise
+            c = _jitter_camera(c[:, :self.c_dim], self.disc_c_noise, generator)
         return self._score(torch.cat([image, image_raw], dim=1), c, force_fp32=force_fp32)
 
 
@@ -218,6 +264,164 @@ class DummyDualDiscriminator(_DiscriminatorCore):
         image_raw = resize_bilinear(img["image_raw"], tuple(image.shape[2:]),
                                     antialias=True) * raw_fade
         return self._score(torch.cat([image, image_raw], dim=1), c, force_fp32=force_fp32)
+
+
+class VideoDiscriminator(_DiscriminatorCore):
+    """Reference dual_discriminator.py `VideoDiscriminator`: scores a frame
+    pair. {"image": [B·T, C, H, W]} (frame-major per video), the frame times
+    Ts [B, T] and cameras c [B, T, ≥c_dim] -> [B, 1]. The T frames stack
+    along channels beside one channel of the gap Ts[:, 1] − Ts[:, 0], resized
+    to `img_resolution` when they are not; the cameras of all T frames
+    condition the score. `img_channels` and `c_dim` are per frame; the
+    pyramid is built for `num_frames` frames. Built on CUDA unless
+    `device="cpu"`."""
+
+    def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 num_frames: int = 2, device="cuda", **kw):
+        device = resolve_device(device)
+        super().__init__(c_dim * num_frames, img_resolution, img_channels * num_frames + 1, **kw)
+        self.frame_c_dim = c_dim
+        self.to(device)
+
+    def forward(self, img: Dict[str, torch.Tensor], Ts: torch.Tensor, c: torch.Tensor,
+                force_fp32: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        T = Ts.shape[1]
+        BT, C, H, W = img["image"].shape
+        B = BT // T
+        dt = (Ts[:, 1] - Ts[:, 0]).reshape(B, 1, 1, 1).to(img["image"].dtype)
+        x = torch.cat([img["image"].reshape(B, T * C, H, W), dt.expand(B, 1, H, W)], dim=1)
+        if H != self.img_resolution:
+            x = resize_bilinear(x, (self.img_resolution, self.img_resolution), antialias=True)
+        c = _jitter_camera(c[..., :self.frame_c_dim].reshape(B, -1), self.disc_c_noise,
+                           generator)
+        return self._score(x, c, force_fp32=force_fp32)
+
+
+def construct_log_spaced_freqs(max_num_frames: int, skip_small_t_freqs: int = 0) -> np.ndarray:
+    """The Fourier frequencies π·2^k / 2^⌈log2 max_num_frames⌉, k below
+    log2 of that, less the `skip_small_t_freqs` highest: [1, nf] float32."""
+    time_resolution = 2 ** np.ceil(np.log2(max_num_frames))
+    num_fourier_feats = int(np.ceil(np.log2(time_resolution)))
+    powers = 2.0 ** np.arange(num_fourier_feats)
+    powers = powers[:len(powers) - skip_small_t_freqs]
+    return (powers[None].astype(np.float32) * np.pi) / time_resolution
+
+
+class FixedTimeEncoder(nn.Module):
+    """Log-spaced Fourier features of a time: [N] or [N, 1] -> [N, 2·nf]
+    (sines, then cosines), from the `fourier_coefs` buffer."""
+
+    def __init__(self, max_num_frames: int, skip_small_t_freqs: int = 0):
+        super().__init__()
+        self.register_buffer("fourier_coefs", torch.from_numpy(
+            construct_log_spaced_freqs(max_num_frames, skip_small_t_freqs)))
+
+    def get_dim(self) -> int:
+        return self.fourier_coefs.shape[1] * 2
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        raw = self.fourier_coefs * t.reshape(-1).float()[:, None]
+        return torch.cat([raw.sin(), raw.cos()], dim=1)
+
+
+class TemporalDifferenceEncoder(nn.Module):
+    """Embedding of the gaps between a video's frames: a learned embedding
+    of the rounded gap beside its Fourier features, [B, T] -> [B, dim]
+    (the first gap alone under "uniform" sampling, else every consecutive
+    gap)."""
+
+    def __init__(self, max_num_frames: int = 32, num_frames_per_video: int = 2,
+                 sampling_type: str = "random", d: int = 256):
+        super().__init__()
+        self.num_frames_per_video = num_frames_per_video
+        self.sampling_type = sampling_type
+        if num_frames_per_video > 1:
+            self.const_embed = nn.Embedding(max_num_frames, d)
+            self.time_encoder = FixedTimeEncoder(max_num_frames)
+
+    def get_dim(self) -> int:
+        if self.num_frames_per_video == 1:
+            return 1
+        per = self.const_embed.embedding_dim + self.time_encoder.get_dim()
+        return per if self.sampling_type == "uniform" else per * (self.num_frames_per_video - 1)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        B = t.shape[0]
+        if self.num_frames_per_video == 1:
+            return torch.zeros(B, 1, device=t.device)
+        if self.sampling_type == "uniform":
+            t_diffs = (t[:, 1] - t[:, 0]).reshape(-1)
+        else:
+            t_diffs = (t[:, 1:] - t[:, :-1]).reshape(-1)
+        const_embs = self.const_embed(t_diffs.float().round().long())
+        fourier = self.time_encoder(t_diffs[:, None])
+        return torch.cat([const_embs, fourier], dim=1).reshape(B, -1)
+
+
+class FusionVideoDiscriminator(nn.Module):
+    """Reference dual_discriminator.py `FusionVideoDiscriminator`: the frames
+    of a video, {"image": [B·T, C, H, W]}, run the blocks one by one down to
+    `concat_res`, where their features (narrowed by `num_frames_div_factor`)
+    stack along channels; the cameras c [B, T, ≥c_dim] of all frames beside
+    the `TemporalDifferenceEncoder` embedding of the times Ts [B, T] feed the
+    camera mapping. -> [B, 1]. Built on CUDA unless `device="cpu"`."""
+
+    def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 architecture: str = "resnet", channel_base: int = 32768,
+                 channel_max: int = 512, num_fp16_res: int = 4,
+                 conv_clamp: Optional[float] = 256.0, cmap_dim: Optional[int] = None,
+                 disc_c_noise: float = 0.0, concat_res: int = 16,
+                 num_frames_div_factor: int = 2, num_frames_per_video: int = 2,
+                 max_num_frames: int = 32, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.c_dim = c_dim
+        self.img_resolution = img_resolution
+        self.disc_c_noise = disc_c_noise
+        self.concat_res = concat_res
+        self.block_resolutions, channels, fp16_resolution, cmap_dim = _channel_plan(
+            img_resolution, channel_base, channel_max, num_fp16_res, cmap_dim, c_dim)
+        self.time_encoder = TemporalDifferenceEncoder(max_num_frames, num_frames_per_video)
+        for res in self.block_resolutions:
+            in_ch = channels(res) if res < img_resolution else 0
+            out_ch = channels(res // 2)
+            if res // 2 == concat_res:
+                out_ch = out_ch // num_frames_div_factor
+            if res == concat_res:
+                in_ch = (in_ch // num_frames_div_factor) * num_frames_per_video
+            self.add_module(f"b{res}", DiscriminatorBlock(
+                in_ch, channels(res), out_ch, res, img_channels, architecture=architecture,
+                conv_clamp=conv_clamp, use_fp16=res >= fp16_resolution))
+        if c_dim > 0:
+            self.mapping = MappingNetwork(
+                0, c_dim * num_frames_per_video + self.time_encoder.get_dim(), cmap_dim,
+                num_ws=None, w_avg_beta=None)
+        self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim, 4, img_channels=img_channels,
+                                        architecture=architecture, conv_clamp=conv_clamp)
+        self.to(device)
+
+    def forward(self, img: Dict[str, torch.Tensor], Ts: torch.Tensor, c: torch.Tensor,
+                force_fp32: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        T = Ts.shape[1]
+        cur = img["image"]
+        if cur.shape[2] != self.img_resolution:
+            cur = resize_bilinear(cur, (self.img_resolution, self.img_resolution),
+                                  antialias=True)
+        cc = torch.cat([c[..., :self.c_dim].reshape(c.shape[0], -1), self.time_encoder(Ts)],
+                       dim=1)
+        cc = _jitter_camera(cc, self.disc_c_noise, generator)
+        x = None
+        for res in self.block_resolutions:
+            if res == self.concat_res:
+                # [(b t), ch, h, w] -> [b, (t ch), h, w]
+                BT, ch, hh, ww = x.shape
+                x = x.reshape(BT // T, T * ch, hh, ww)
+                cur = None
+            x, cur = getattr(self, f"b{res}")(x, cur, force_fp32=force_fp32)
+        cmap = self.mapping(None, cc) if self.c_dim > 0 else None
+        return self.b4(x, cur, cmap)
 
 
 def filtered_resizing(image: torch.Tensor, size: int, filter_mode="antialiased") -> torch.Tensor:

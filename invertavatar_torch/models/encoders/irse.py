@@ -50,19 +50,33 @@ def store_weights_in(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d in inference form (eps 1e-5), torch parameter names."""
+    """BatchNorm2d (eps 1e-5, momentum 0.1), torch parameter names. It
+    normalises by the running statistics unless `train`, when it takes the
+    batch's (biased) statistics and moves the running ones towards them
+    (the variance unbiased), as the JAX package's does."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach() * n / max(n - 1, 1), self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean[:, None, None]) * inv[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 

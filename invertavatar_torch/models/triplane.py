@@ -13,6 +13,16 @@ Counterpart of `invertavatar_tpu/models/triplane.py`:
 
 Planes are `[B, 3, C, H, W]`. `uvcoords_image` is `[B, H, W, 3]` (u, v, alpha)
 as the driving code produces it.
+
+`remat_stages` (a `rendering_kwargs` key, or a per-call
+`rendering_overrides` one, which wins) checkpoints the stages of a
+grad-carrying render with `torch.utils.checkpoint`: the volume render and
+the super-resolution in every synthesis entry point, and the raster +
+face-backbone stage of `synthesis_withTexture`. Their forwards keep only the
+stage boundaries and the backward runs each again. The draws of an explicit
+`torch.Generator` (stratified offsets, density and importance draws, the
+backbones' and the SR's noise) are replayed in the recompute, so the
+backward differentiates the samples the forward used.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.grid_sample import grid_sample
 from ..ops.resize import resize_bilinear
@@ -67,6 +78,37 @@ def _to_planes(x: torch.Tensor) -> torch.Tensor:
     """[B, 3*C, H, W] -> [B, 3, C, H, W] (channel-major grouping)."""
     B, C3, H, W = x.shape
     return x.reshape(B, 3, C3 // 3, H, W)
+
+
+def _remat(enabled: bool, fn, generator: Optional[torch.Generator], *args):
+    """`fn(*args)`, checkpointed when `enabled`. The recompute starts from
+    the state `generator` had when the forward entered the stage, and leaves
+    it where the backward found it (`checkpoint` restores only the global CPU
+    and CUDA generators)."""
+    if not enabled:
+        return fn(*args)
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    entry = generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a)
+        finally:  # also when the recompute stops early
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def _remat_stages(rendering_kwargs: Dict, rendering_overrides: Optional[Dict]) -> bool:
+    return bool((rendering_overrides or {}).get("remat_stages",
+                                                rendering_kwargs.get("remat_stages", False)))
 
 
 def _bbox(res: int, bbox_256) -> List[int]:
@@ -243,16 +285,25 @@ class TriPlaneGenerator(nn.Module):
         ray_o, ray_d = sample_rays(cam2world, intrinsics, res)
 
         blended_planes = self._blend_planes(rendering_stitch, full_alpha, static_plane)
-        feature_samples, depth_samples, _ = self.renderer(
-            blended_planes, self.decoder, ray_o, ray_d, rk, evaluation=evaluation,
-            generator=generator, decoder_params=self.decoder.return_params())
+        remat = bool(rk.get("remat_stages", False))
+
+        def volume(planes, ray_o, ray_d, decoder_params):
+            return self.renderer(planes, self.decoder, ray_o, ray_d, rk, evaluation=evaluation,
+                                 generator=generator, decoder_params=decoder_params)[:2]
+
+        feature_samples, depth_samples = _remat(remat, volume, generator, blended_planes,
+                                                ray_o, ray_d, self.decoder.return_params())
         B = ws.shape[0]
         feature_image = feature_samples.permute(0, 2, 1).reshape(B, -1, res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(B, 1, res, res)
         rgb_image = feature_image[:, :3]
-        sr_image = self.superresolution(
-            rgb_image, feature_image, ws,
-            noise_mode=rk.get("superresolution_noise_mode", "none"), generator=generator)
+
+        def superresolve(rgb, feats, ws_):
+            return self.superresolution(
+                rgb, feats, ws_, noise_mode=rk.get("superresolution_noise_mode", "none"),
+                generator=generator)
+
+        sr_image = _remat(remat, superresolve, generator, rgb_image, feature_image, ws)
         return {
             "image": sr_image,
             "image_raw": rgb_image,
@@ -298,14 +349,51 @@ class TriPlaneGenerator(nn.Module):
         kw = dict(noise_mode=noise_mode, generator=generator)
         if static_feats is None:
             static_feats = self.backbone.synthesis(ws, return_list=True, **kw)
-        rendering_images, full_alpha, _ = self.rasterize(
-            texture_feats, mesh_condition["uvcoords_image"],
-            self._static_feats_for_raster(static_feats), static_small=raster_static_cache,
-            texture_concat_cache=texture_concat_cache)
-        rendering_stitch = self.face_backbone.synthesis(ws, cond_list=rendering_images, **kw)
+
+        def raster_face(uvcoords_image, ws_):
+            rendering_images, full_alpha, _ = self.rasterize(
+                texture_feats, uvcoords_image, self._static_feats_for_raster(static_feats),
+                static_small=raster_static_cache, texture_concat_cache=texture_concat_cache)
+            return (self.face_backbone.synthesis(ws_, cond_list=rendering_images, **kw),
+                    full_alpha)
+
+        rendering_stitch, full_alpha = _remat(
+            _remat_stages(self.rendering_kwargs, rendering_overrides), raster_face, generator,
+            mesh_condition["uvcoords_image"], ws)
         return self._render_core(ws, c, rendering_stitch, full_alpha,
                                  _to_planes(static_feats[-1]), evaluation, generator,
                                  rendering_overrides)
+
+    def synthesis_withCondition(self, ws, c, mesh_condition: Dict[str, torch.Tensor],
+                                texture_feats_conditions: Optional[Dict] = None,
+                                static_feats_conditions: Optional[Dict] = None,
+                                evaluation: bool = False, noise_mode: str = "random",
+                                only_image: bool = False, return_feats: bool = False,
+                                generator: Optional[torch.Generator] = None):
+        """The CS-SFT entry point: both backbones recomputed with the
+        per-resolution (scale, shift) `feat_conditions` of the texture and the
+        static backbone (None: none), then the raster, the face backbone and
+        the render. Returns `synthesis`'s full dict ("image", "image_raw",
+        "image_depth", "feature_image", "triplane"), with the backbones'
+        feature lists as "static" and "texture" when `return_feats`, or
+        {"image"} alone when `only_image`."""
+        kw = dict(noise_mode=noise_mode, generator=generator)
+        texture_feats = self.texture_backbone.synthesis(
+            ws, return_list=True, feat_conditions=texture_feats_conditions, **kw)
+        static_feats = self.backbone.synthesis(
+            ws, return_list=True, feat_conditions=static_feats_conditions, **kw)
+        rendering_images, full_alpha, _ = self.rasterize(
+            texture_feats, mesh_condition["uvcoords_image"],
+            self._static_feats_for_raster(static_feats))
+        rendering_stitch = self.face_backbone.synthesis(ws, cond_list=rendering_images, **kw)
+        out = self._render_core(ws, c, rendering_stitch, full_alpha, _to_planes(static_feats[-1]),
+                                evaluation, generator)
+        if only_image:
+            return {"image": out["image"]}
+        if return_feats:
+            out["static"] = static_feats
+            out["texture"] = texture_feats
+        return out
 
     # ------------------------------------------------------------ density probes
     def sample_mixed(self, coordinates: torch.Tensor, ws: torch.Tensor,

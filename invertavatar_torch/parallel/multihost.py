@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.misc import resolve_device
-from .mesh import DataMesh, make_mesh
+from .mesh import DataMesh, _src, make_mesh
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 
@@ -75,31 +75,53 @@ def local_batch_slice(global_batch: int, mesh: Optional[DataMesh] = None) -> sli
 def check_replica_consistency(mesh: DataMesh, modules, atol: float = 0.0) -> None:
     """Reference torch_utils/misc.py `check_ddp_consistency`: every parameter
     and buffer of `modules` (a module, or a dict of named modules) agrees
-    across ranks. Two float64 checksums per tensor (its sum and its sum of
-    squares) are reduced to their maximum and minimum over ranks; the first
-    tensor whose spread exceeds `atol` is named in the raised error. Nothing
-    is exempt: the mapping's `w_avg` is global under a mesh."""
+    across ranks, element by element. The tensors of each dtype are
+    flattened into one, and group rank 0's copy is broadcast (one broadcast
+    the size of `replicate`'s). Each rank compares its copy with rank 0's
+    after `torch.nan_to_num`, within `atol`, and also compares where each
+    holds NaN, +inf and -inf, which `nan_to_num` maps onto numbers. The
+    largest deviation of each tensor is reduced to its maximum over ranks, so
+    every rank reaches the same verdict and all raise, naming the first
+    tensor that differs. Nothing is exempt: the mapping's `w_avg` is global
+    under a mesh."""
     if isinstance(modules, torch.nn.Module):
         modules = {"": modules}
-    names, sums = [], []
+    by_dtype: dict = {}
     for prefix, module in modules.items():
         for name, t in list(module.named_parameters()) + list(module.named_buffers()):
-            t = t.detach().to(mesh.device, torch.float64)
-            names.append(f"{prefix}.{name}" if prefix else name)
-            sums += [t.sum(), t.square().sum()]
+            by_dtype.setdefault(t.dtype, []).append((f"{prefix}.{name}" if prefix else name,
+                                                     t.detach()))
+    names = [n for items in by_dtype.values() for n, _ in items]
     if not names:
         return
-    hi = torch.stack(sums)
-    lo = hi.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group)
-    spread = (hi - lo).reshape(-1, 2).amax(dim=1)
-    bad = torch.nonzero(spread > atol).flatten()
+    devs = []
+    for dtype, items in by_dtype.items():
+        mine = torch.cat([t.reshape(-1).to(mesh.device) for _, t in items])
+        ref = mine.clone()
+        dist.broadcast(ref, src=_src(mesh), group=mesh.group)
+        if dtype.is_floating_point:
+            dev = (torch.nan_to_num(mine) - torch.nan_to_num(ref)).abs()
+            dev[_nonfinite_class(mine) != _nonfinite_class(ref)] = float("inf")
+        else:
+            dev = (mine.to(torch.float64) - ref.to(torch.float64)).abs()
+        for d in dev.split([t.numel() for _, t in items]):
+            devs.append(d.amax().double() if d.numel() else
+                        torch.zeros((), dtype=torch.float64, device=mesh.device))
+    dev = torch.stack(devs)
+    dist.all_reduce(dev, op=dist.ReduceOp.MAX, group=mesh.group)
+    bad = torch.nonzero(dev > atol).flatten()
     if bad.numel():
         i = int(bad[0])
-        raise AssertionError(f"rank {mesh.rank}: replicas differ at {names[i]} (checksums "
-                             f"{hi[2 * i].item()!r} / {lo[2 * i].item()!r} at most / least "
-                             f"over ranks)")
+        raise AssertionError(f"rank {mesh.rank}: replicas differ at {names[i]} (largest "
+                             f"deviation from group rank 0 over ranks {dev[i].item()!r}, "
+                             f"atol {atol!r}; inf where one holds NaN or inf and another "
+                             f"does not)")
+
+
+def _nonfinite_class(t: torch.Tensor) -> torch.Tensor:
+    """0 for a finite entry, 1 for NaN, 2 for +inf, 3 for -inf."""
+    return (torch.isnan(t).to(torch.int8) + 2 * torch.isposinf(t).to(torch.int8)
+            + 3 * torch.isneginf(t).to(torch.int8))
 
 
 def _rank_main(rank: int, fn: Callable, n_ranks: int, run_dir: str, store_name: str,

@@ -3,8 +3,10 @@
 Counterpart of `invertavatar_tpu/utils/stats.py`: counters accumulate
 [num, sum, sum of squares] per name, and `sync` sums the pending triples over
 the ranks of a data-parallel run before a tick closes; `StatsLogger` appends
-one JSON line per tick to `stats.jsonl` (rank 0's). The JAX package's
-optional TensorBoard sink is left out.
+one JSON line per tick to `stats.jsonl` and, where `torch.utils.tensorboard`
+imports and its writer opens, each name's mean to a TensorBoard event file in
+the same directory (rank 0's alone). As in the JAX package, a sink that
+cannot be opened is simply absent.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import json
 import os
 import re
 import time
+import zlib
 from collections import defaultdict
 from typing import Dict
 
@@ -35,7 +38,11 @@ class Collector:
         """Sum the pending [num, sum, sum of squares] of every name over the
         ranks of the default process group, in float64 (the reference's
         training_stats all-reduce); a no-op without a process group. Every
-        rank calls it at the same point, having reported the same names."""
+        rank calls it at the same point, having reported the same names.
+        First a fixed-length digest of the names (their count and a crc32 of
+        the sorted names, each reduced to its maximum and minimum) is
+        all-reduced, so that ranks whose names differ all raise
+        `RuntimeError` before the sums, whose sizes would then differ."""
         import torch
         import torch.distributed as dist
 
@@ -44,13 +51,20 @@ class Collector:
         names = sorted(self._moments)
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
-        flat = np.concatenate([np.stack([self._moments[n] for n in names]).ravel()
-                               if names else np.zeros(0), [len(names)]])
+        crc = zlib.crc32("\n".join(names).encode())
+        digest = torch.tensor([len(names), -len(names), crc, -crc], dtype=torch.float64,
+                              device=device)
+        dist.all_reduce(digest, op=dist.ReduceOp.MAX)
+        count_hi, count_lo, crc_hi, crc_lo = digest.cpu().tolist()
+        if count_hi != -count_lo or crc_hi != -crc_lo:
+            raise RuntimeError(f"Collector.sync: ranks reported different names (rank "
+                               f"{dist.get_rank()}: {names})")
+        if not names:
+            return
+        flat = np.stack([self._moments[n] for n in names]).ravel()
         total = torch.from_numpy(flat).to(device)
         dist.all_reduce(total)
         total = total.cpu().numpy()
-        if total[-1] != len(names) * dist.get_world_size():
-            raise RuntimeError(f"Collector.sync: ranks reported different names ({names})")
         for i, n in enumerate(names):
             self._moments[n] = total[3 * i:3 * i + 3].copy()
 
@@ -82,16 +96,33 @@ class Collector:
 
 
 class StatsLogger:
-    """Sink: `stats.jsonl` in `run_dir`."""
+    """Sinks: `stats.jsonl` in `run_dir` and, with `use_tensorboard`, a
+    TensorBoard event file there (`tensorboard` is None when the import or
+    the writer fails)."""
 
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, use_tensorboard: bool = True):
         os.makedirs(run_dir, exist_ok=True)
         self._jsonl = open(os.path.join(run_dir, "stats.jsonl"), "a")
+        self.tensorboard = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.tensorboard = SummaryWriter(run_dir)
+            except Exception:
+                self.tensorboard = None
 
     def write(self, collector: Collector, step: int) -> None:
-        entry = {**collector.as_dict(), "timestamp": time.time(), "step": step}
+        stats = collector.as_dict()
+        entry = {**stats, "timestamp": time.time(), "step": step}
         self._jsonl.write(json.dumps(entry) + "\n")
         self._jsonl.flush()
+        if self.tensorboard is not None:
+            for name, st in stats.items():
+                self.tensorboard.add_scalar(name, st["mean"], global_step=step)
+            self.tensorboard.flush()
 
     def close(self) -> None:
         self._jsonl.close()
+        if self.tensorboard is not None:
+            self.tensorboard.close()

@@ -29,6 +29,11 @@ HWIO -> OIHW, the `lin.<i>.1` 1×1 heads) and the ArcFace backbone (the IR-SE
 trunk, `output_layer.0` BatchNorm and `.4` BatchNorm1d statistics from
 `batch_stats`, the `output_layer.3` linear [in, out] -> [out, in]).
 
+The StyleGAN3 input (`...input.weight`, a [C, C] matrix the JAX package
+already applies as `x @ weight.T`) keeps its layout, and its `input.affine`
+bias gains the reference's [1, 0, 0, 0] start, which JAX adds after a zero
+bias instead (`models/stylegan3.py`).
+
 `resample_filter` buffers are not in the trees: the port rebuilds them from
 their taps and keeps them out of the state dict.
 """
@@ -58,8 +63,16 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+_SG3_INPUT_WEIGHT = re.compile(r"(^|\.)input\.weight$")
+_SG3_INPUT_AFFINE_BIAS = re.compile(r"(^|\.)input\.affine\.bias$")
+
+
 def convert_array(name: str, arr: np.ndarray) -> np.ndarray:
     """One JAX-layout array -> the torch reference layout."""
+    if _SG3_INPUT_WEIGHT.search(name):
+        return arr
+    if _SG3_INPUT_AFFINE_BIAS.search(name) and arr.shape == (4,):
+        return arr + np.asarray([1.0, 0.0, 0.0, 0.0], arr.dtype)
     if name.endswith(".weight"):
         if arr.ndim == 4:  # HWIO -> OIHW
             return np.transpose(arr, (3, 2, 0, 1))

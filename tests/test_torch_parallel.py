@@ -13,8 +13,10 @@ JAX package on the global batch:
     of the squared input gradient, R1's double backward) and the global
     `w_avg` against JAX's layers on the global batch;
   * `Collector.sync` against one collector, and JAX's, fed every report;
-  * `check_replica_consistency` passes on equal replicas and names a
-    perturbed buffer;
+  * `Collector.sync` raises on every rank when the ranks' names differ,
+    by name or by count, and is a no-op when no rank reported;
+  * `check_replica_consistency` passes on equal replicas and, on every
+    rank, names a perturbed buffer, two swapped entries or a NaN;
   * the GAN step, `train_gan`, `train_e4e`, `train_oneshot` and
     `train_fewshot` on 2 ranks against one process at the global batch,
     with every draw on; the replicas bitwise equal;
@@ -37,6 +39,7 @@ per-rank means against one mean, then the lerp), 1e-12 for the collectors
 `test_gan_step_matches_jax`).
 """
 
+import importlib.util
 import json
 import os
 
@@ -276,6 +279,33 @@ def test_check_replica_consistency_names_the_differing_buffer(tmp_path):
         assert err is not None and "replicas differ at mapping.w_avg" in err, err
 
 
+@pytest.mark.parametrize("reports", [
+    [[("Loss/A", 1.0)], [("Loss/B", 2.0)]],
+    [[("Loss/A", 1.0), ("Loss/B", 3.0)], [("Loss/A", 2.0)]],
+], ids=["same_count_other_names", "other_counts"])
+def test_collector_sync_raises_on_every_rank_when_names_differ(tmp_path, reports):
+    """Ranks whose names differ all raise `RuntimeError` from `sync`, with
+    the same count (the sums would land under the wrong names) and with
+    another count (the sums' all-reduce would abort gloo)."""
+    for rank, err in enumerate(_spawn(ranks.collector_mismatch_rank, tmp_path, reports)):
+        assert err is not None and "ranks reported different names" in err, (rank, err)
+        assert repr(sorted(n for n, _ in reports[rank])) in err, err
+
+
+def test_collector_sync_with_nothing_reported_is_a_no_op(tmp_path):
+    for got in _spawn(ranks.collector_rank, tmp_path, [[], []]):
+        assert got == {}
+
+
+@pytest.mark.parametrize("fault", ["swap", "nan"])
+def test_check_replica_consistency_fails_every_rank_on_a_swap_or_a_nan(tmp_path, fault):
+    """Two swapped weight entries (equal sums) and a NaN on one rank fail the
+    check on every rank, naming the tensor."""
+    what = "lin.weight" if fault == "swap" else "lin.bias"
+    for err in _spawn(ranks.replica_fault_rank, tmp_path, fault):
+        assert err is not None and f"replicas differ at {what}" in err, err
+
+
 # ---------------------------------------------------------------- trainers
 
 
@@ -327,7 +357,8 @@ def test_train_gan_resumes_bitwise_on_two_ranks(tmp_path):
     """`train_gan(mesh=)` on 2 ranks of 1 item: 2 steps straight against 1
     step, a snapshot and the second resumed from it end on the same bits
     (G, D, EMA); only rank 0 writes (one `stats.jsonl` line a tick, one
-    snapshot and one fakes grid a tick)."""
+    snapshot and one fakes grid a tick, and one TensorBoard event file
+    where `tensorboard` is installed)."""
     a = _spawn(ranks.train_gan_run, tmp_path / "a", str(tmp_path / "run_a"), 2, 1, 2)
     _spawn(ranks.train_gan_run, tmp_path / "b", str(tmp_path / "run_b"), 1, 1, 2)
     snap = str(tmp_path / "run_b" / "snapshot-00000002.pt")
@@ -338,7 +369,10 @@ def test_train_gan_resumes_bitwise_on_two_ranks(tmp_path):
     with open(tmp_path / "run_a" / "stats.jsonl") as f:
         lines = [json.loads(line) for line in f]
     assert [e["step"] for e in lines] == [2, 4]
-    assert sorted(os.listdir(tmp_path / "run_a")) == [
+    names = sorted(os.listdir(tmp_path / "run_a"))
+    events = [n for n in names if n.startswith("events.out.tfevents.")]
+    assert len(events) == (importlib.util.find_spec("tensorboard") is not None), names
+    assert [n for n in names if n not in events] == [
         "fakes00000002.png", "fakes00000004.png", "snapshot-00000002.pt",
         "snapshot-00000004.pt", "stats.jsonl", "training_options.json"]
 

@@ -71,6 +71,38 @@ def replica_rank(mesh):
     return first, None
 
 
+def collector_mismatch_rank(mesh, reports):
+    """`Collector.sync` of reports whose names differ between ranks: the
+    `RuntimeError`'s text, or None when nothing was raised."""
+    try:
+        collector_rank(mesh, reports)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def replica_fault_rank(mesh, fault):
+    """`check_replica_consistency` on a `Linear` that the last rank corrupts:
+    "swap" exchanges two of its weight entries (the sums stay), "nan" puts a
+    NaN in its bias; the error's text, or None."""
+    from invertavatar_torch.parallel.multihost import check_replica_consistency
+
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(4, 3)
+    if mesh.rank == mesh.world_size - 1:
+        with torch.no_grad():
+            if fault == "swap":
+                w = lin.weight.view(-1)
+                w[[0, 5]] = w[[5, 0]].clone()
+            else:
+                lin.bias[1] = float("nan")
+    try:
+        check_replica_consistency(mesh, {"lin": lin})
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
 def collectives_rank(mesh):
     """Draws, gathers and reductions under the mesh, `replicate` and
     `all_reduce_grads`, as numpy for the test to hold against one process."""
