@@ -69,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      samples) against the dual discriminator at 512² (6 channels, bf16 top
      4 resolutions), batch 4, 6 steps (step 0 with both lazy
      regularisations, step 4 with the density TV, the rest with neither),
-     then 3 warm steps with both; ms/step and the peak memory; losses,
+     then 2 warm steps with both; ms/step and the peak memory; losses,
      parameters and the EMA finite; no B1/B2 launch (training renders are
      not evaluation renders)
  18. a small one-shot training step (the tests' tiny widths rendering 256²,
@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      `fast_igen_target="exact"` with the student render on B3 and its
      transpose (`fast_grad="pallas"`) on the card, against the same phases
      through `F.grid_sample` (`"structured"`) on the card and against the
-     CPU; losses and the trained network's gradients
+     CPU, on seed 28; losses and the trained network's gradients
  19. one-shot training at flagship width through `train_oneshot`: the
      float32 flagship generator (48+48 samples) and IR-SE-50 e4e encoder,
      frozen, two float32 SegFormer U-Nets, the dual discriminator at 512²,
@@ -89,8 +89,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
  20. a small few-shot training step (phase 18's tiny generator, a tiny-trunk
      ConvGRU `InversionNet`, a dual discriminator at 256², adv on) on a
      4-frame clip in chunks of 2 (one carried GRU state): Ireal (tri-plane
-     decoder), Igen (texture decoder) and D (R1 on one seed), each from the
-     same weights, two seeds; the no-grad renders on B1/B2 (`"fused"`), the
+     decoder), Igen (texture decoder) and D without and with R1, each from
+     the same weights, on seed 28; the no-grad renders on B1/B2 (`"fused"`), the
      grad-carrying render on B3 and its transpose (`"pallas"`) or on
      `F.grid_sample` (`"structured"`) on the card, against the CPU's plain
      versions; losses, the trained module's gradients, and every phase's
@@ -99,11 +99,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      float32 flagship generator (48+48 samples) and IR-SE-50 e4e encoder,
      frozen, two float32 IR-SE-50 ConvGRU U-Nets, the dual discriminator at
      512², LPIPS (AlexNet, seeded weights), batch 1, seeded 512² clips of
-     18 frames, 10 steps: two passes of the curriculum T = 6, 12, 12, 18, 18
-     in chunks of 6, each step Ireal, Igen and D (R1 at step 0), the no-grad
-     renders fused (B1/B2), the grad-carrying ones on B3 and its transpose;
-     B1/B2 and B3/transpose first checked and timed at this path's shapes
-     (one no-grad e4e render, one student render); per phase and per T ms,
+     18 frames, 6 steps: the curriculum T = 6, 12, 12, 18, 18, then T = 6
+     again, in chunks of 6, each step Ireal, Igen and D (R1 at step 0), the
+     no-grad renders fused (B1/B2), the grad-carrying ones on B3 and its
+     transpose; B1/B2 and B3/transpose first checked and timed at this
+     path's shapes (one no-grad e4e render, one student render); per phase
+     and per T ms from the steps whose T ran before (2, 4, 5),
      the launches of each phase against the counts from the code, the peak
      memory; only the scheduled decoder moves in each step, D moves, the
      trunks, the generator and the encoder never do
@@ -146,10 +147,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      1e-4 relative,
      gradients to 1e-3 of each network's largest entry, `w_avg` (bitwise
      where the card repeats bitwise); the step time of phase 17's path with
-     and without the mesh in turns; `train_gan` over the mesh, 3 steps. 25b,
+     and without the mesh in turns; `train_gan` over the mesh, 2 steps. 25b,
      on 2 spawned
      gloo ranks sharing the card against one process at the global batch:
-     the first GAN step (as 25a) and `train_gan` (3 steps); the one-shot
+     the first GAN step (as 25a) and `train_gan` (2 steps); the one-shot
      path at flagship width (phase 19's models with D in float32, batch 2, 2
      steps, B3 + transpose) and the few-shot path at phase 20's small width (2 clips of
      4 frames, 2 steps, all four kernels): losses to 1e-4 relative,
@@ -183,6 +184,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      whether `torch.utils.tensorboard` imports; one `train_gan` tick of
      phase 16's tiny models, whose event file (with the sink) holds the
      means of its `stats.jsonl`
+ 27. the style-U-Nets and the Next3D generators. 27a: the seven style-U-Net
+     configurations (`CondSynthesisNetworkWithGRU`, `CondSynthesisNetwork`
+     plain and `residual_arch`, `_New`, `_WithConvFusion`, `_SFT`,
+     `PlainSynthesisNetwork`) at the tests' widths on the card against the
+     CPU to 1e-4, then at the widths the classes default to (channel_base
+     32768, channel_max 512, a 3-channel condition at 64², 32 output
+     channels at 256², B=1, T=4; `_New` reads its condition at 256², as its
+     pyramid needs): finite, ms per call and peak memory; no kernel. 27b:
+     the Next3D generator at the smoke tests' geometry on a 24 x 32 sphere,
+     on the exact, `pallas_exact` (B3 float32) and `pallas_coarse` (B3
+     bf16) routes, on the card against the CPU within phase 5's bands, the
+     kernel routes against the exact route, and B3 (both payloads) against
+     its plain version at those shapes. 27c: Next3D at full width (z 512,
+     channel_base 32768, channel_max 512, 256² backbones in float32, 128²
+     render, 48+48 samples, `det_stratified`, `pallas_coarse`, SR 8XDC with
+     bf16 blocks, 512²) over a sphere of FLAME's size (5,096 vertices,
+     9,984 faces, 68 landmarks; every 32² tile's candidate faces under the
+     cap of 1024): B3 held against its plain version and timed with its
+     bound and `F.grid_sample` at the frame's own shapes for both payloads,
+     the kernel routes against the exact route within phase 5's bands, warm
+     frames timed with the peak memory, B3 once per frame and B1/B2 never;
+     then one `LegacyTriPlaneGenerator` at the same width: finite, timed
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -218,11 +241,19 @@ GAN_BATCH = 4  # the reference's per-GPU batch (32 over 8 GPUs)
 ONESHOT_BATCH = 2  # the reference's one-shot per-GPU batch (16 over 8 GPUs)
 N_ONESHOT_TRAIN = 8  # flagship one-shot steps (phase 19): 0-3 cover the schedule, R1 at 0
 N_ONESHOT_TIMED_FROM = 4  # steps 4-7 are the timed ones
+# phase 18's seeds: every phase and route runs on each, Dreal with R1 on
+# both; seed 28 has come nearest the bar (Ireal's gradient 5.3e-4 of 1e-3
+# on an H100), so it stays and seed 18 went to make room for phase 27
+SMALL_ONESHOT_SEEDS = (28,)
+# phase 20's seeds: seed 18 ran D with R1 and seed 28 without; seed 28 now
+# runs D both ways (one more D phase in place of a second seed's three)
+SMALL_FEWSHOT_SEEDS = (28,)
 FEWSHOT_TRAIN_BATCH = 1  # the reference's few-shot per-GPU batch (8 over 8 GPUs)
 FEWSHOT_CURRICULUM = (6, 12, 18)  # clip lengths of the few-shot schedule (phase 21)
 FEWSHOT_TC = 6  # frames per chunk
 FEWSHOT_TRAIN_T = 18  # frames per clip: the curriculum's longest
-N_FEWSHOT_TRAIN = 10  # flagship few-shot steps: two passes of the curriculum, 5-9 timed
+N_FEWSHOT_TRAIN = 6  # flagship few-shot steps: the curriculum once, then T = 6 again;
+# a step is timed when its T has run before (steps 2, 4, 5)
 N_PREP_FRAMES = 16  # seeded frames through dataset preparation (phase 22)
 N_METRIC_ITEMS = 64  # fid64's real and generated images (phase 23)
 N_METRIC_GAN_STEPS = 2  # train_gan steps before the metric snapshot (phase 23)
@@ -233,15 +264,15 @@ PROJ_LR = 0.01  # its initial learning rate: 30 steps reach a W+ offset of ~0.1
 PROJ_W_OFFSET = 0.1  # the target's W+ code: a mapped z plus N(0, PROJ_W_OFFSET²)
 N_GAN_STEPS = 6  # flagship GAN steps (phase 17): step 0 runs both regularisations,
 # step 4 the density TV, the others neither
-N_GAN_REG_TIMED = 3  # warm steps with both regularisations, timed after the run
+N_GAN_REG_TIMED = 2  # warm steps with both regularisations, timed after the run
 DP_RANKS = 2  # phase 25b's gloo ranks, all on card 0
-DP_GAN_STEPS = 3  # phase 25's train_gan steps: step 0 with both regularisations
+DP_GAN_STEPS = 2  # phase 25's train_gan steps: step 0 with both regularisations
 DP_ONESHOT_STEPS = 2  # phase 25b's one-shot steps: Ireal + Dreal (R1 at step 0)
 DP_FEWSHOT_CURRICULUM = (2, 4, 4)  # phase 25b's few-shot clip lengths, chunks of 2
 DP_FEWSHOT_STEPS = 2  # T = 2 then 4; R1 at step 0
 DP_TIMEOUT_S = 600  # each collective's bound in phase 25
 N_COND_WARMUP, N_COND_TIMED = 3, 10  # synthesis_withCondition calls (phase 26a)
-N_REMAT_TIMED = 3  # timed steps of each remat_stages setting (phase 26b)
+N_REMAT_TIMED = 2  # timed steps of each remat_stages setting (phase 26b)
 N_MODULE_WARMUP, N_MODULE_TIMED = 2, 5  # calls of each module of phases 26c-26d
 # phase 5's small configuration (phase 26a holds it on the card against the CPU)
 SMALL_FRAME_RK = dict(depth_resolution=12, depth_resolution_importance=12, tile_shape=(16, 4))
@@ -261,11 +292,49 @@ VIDEO_SMALL = dict(c_dim=25, img_resolution=32, img_channels=3, channel_base=102
 # video discriminators' frames
 DEEPLAB_RES, MOCO_RES, CX_RES, VIDEO_RES = 512, 224, 512, 512
 
+# phase 27a: the tests' tiny style-U-Net widths, and the widths the classes
+# default to with a 3-channel condition at 64², 32 output channels at 256²,
+# B=1 and T=4 (the absorb's chunk) for the clip variants
+STYLEUNET_SMALL = dict(img_resolution=64, img_channels=8, cond_channels=3, in_size=16,
+                       final_size=4, channel_base=512, channel_max=64, num_cond_res=16)
+STYLEUNET_FULL = dict(img_resolution=256, img_channels=32, cond_channels=3, in_size=64,
+                      final_size=4, channel_base=32768, channel_max=512, num_cond_res=64)
+STYLEUNET_T = 4
+# phase 27b: the Next3D smoke tests' geometry (tests/test_next3d.py) on their
+# 24 x 32 sphere; 27c: Next3D at full width on a sphere of FLAME's size
+N3D_SMALL = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,
+                 neural_rendering_resolution=32, channel_base=512, channel_max=64,
+                 num_fp16_res=0, map_num_layers=2, faces_per_tile=512)
+N3D_SMALL_RK = {"image_resolution": 128, "superresolution_module": "x.SuperresolutionHybrid2X",
+                "c_gen_conditioning_zero": False, "c_scale": 1.0,
+                "superresolution_noise_mode": "const", "density_reg": 0.25,
+                "decoder_lr_mul": 1.0, "sr_antialias": True, "depth_resolution": 6,
+                "depth_resolution_importance": 6, "ray_start": 2.25, "ray_end": 3.3,
+                "box_warp": 1.0, "det_stratified": True}
+N3D_SMALL_SPHERE = (24, 32)
+N3D_FULL = dict(z_dim=512, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
+                channel_base=32768, channel_max=512, num_fp16_res=0, sr_num_fp16_res=4,
+                map_num_layers=2, neural_rendering_resolution=128, faces_per_tile=1024)
+N3D_FULL_RK = dict(N3D_SMALL_RK, image_resolution=512,
+                   superresolution_module="x.SuperresolutionHybrid8XDC",
+                   superresolution_noise_mode="none", depth_resolution=48,
+                   depth_resolution_importance=48, pallas_coarse=True)
+N3D_FULL_SPHERE = (49, 104)  # 5,096 vertices, 9,984 faces (FLAME: 5,023 and 9,976)
+N3D_FRAMES, N3D_EXACT_FRAMES = 10, 3  # timed 27c frames on the bf16 and fp32 B3 routes
+
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
 # the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+
+
+PHASE_MARKS = [("1-2", T_START)]
+
+
+def mark(label):
+    """Start the wall-clock span of the phases `label` (ends at the next mark)."""
+    PHASE_MARKS.append((label, time.perf_counter()))
 
 
 def fail(msg):
@@ -489,7 +558,7 @@ def b3_forward_check(torch, ps, tag, label, planes, grid, out):
               f"(fused multiply-adds; bf16: one ulp of the output), violations {bad}")
         if bad or not torch.isfinite(k.float()).all():
             fail(f"B3 ({dt}, {label}) disagrees with its plain version")
-    if not torch.equal(out, ps.sample_planes_windowed(planes, grid)):
+    if not torch.equal(out, ps.sample_planes_windowed(planes, grid, out.dtype)):
         fail(f"the recorded render's B3 output ({label}) differs from a fresh launch")
     return errs
 
@@ -616,6 +685,7 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     earlier = earlier_transposes(torch, ps, earlier_src)
 
     # ---------------------------------------------------------------- phase 8
+    mark("8")
     t0 = time.perf_counter()
     net = flagship_inversion_net(device=dev)
     batch = batch_on(dev, 512, 512)
@@ -718,6 +788,7 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     del calls, tex, static, ws, planes_nc
 
     # ---------------------------------------------------------------- phase 9
+    mark("9")
     from invertavatar_torch.flagship import init_flagship
 
     small_rk = {"superresolution_module": "x.SuperresolutionHybrid2X",
@@ -767,6 +838,7 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     del net_cpu, net_gpu, results
 
     # --------------------------------------------------------------- phase 10
+    mark("10")
     state, wd_state = states(net)
     step = make_e4e_grad_programs(net, l1, None, weights, fast_igen_target="exact",
                                   fast_grad="pallas")
@@ -917,6 +989,7 @@ def fewshot_phases(torch, dev, card, fr, mgr, traj):
     from invertavatar_torch.flagship import FLAGSHIP_RENDERING_KWARGS, fewshot_inversion_net
 
     # ---------------------------------------------------------------- phase 12
+    mark("12")
     small = dict(z_dim=32, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
                  sr_num_fp16_res=0, neural_rendering_resolution=32, channel_base=2048,
                  channel_max=128, num_fp16_res=0, map_num_layers=2,
@@ -956,6 +1029,7 @@ def fewshot_phases(torch, dev, card, fr, mgr, traj):
     del inputs
 
     # ---------------------------------------------------------------- phase 13
+    mark("13")
     t0 = time.perf_counter()
     net = fewshot_inversion_net(device=dev)
     n_frames = 2 * FEWSHOT_T
@@ -1058,6 +1132,7 @@ def oneshot_phases(torch, dev, card, fr, mgr, traj):
     del outs, feats_g, feats_c, frames_g, frames_c
 
     # ---------------------------------------------------------------- phase 15
+    mark("15")
     t0 = time.perf_counter()
     net = oneshot_inversion_net(device=dev)
     image, uv, cam, uvc = synthetic_source_clip(mgr, traj, 1, seed=15)
@@ -1225,6 +1300,7 @@ def gan_phases(torch, dev, card):
     del results, G0, D0
 
     # ---------------------------------------------------------------- phase 17
+    mark("17")
     t0 = time.perf_counter()
     G, D = gan_models(torch, dev, 17)
     batches = [batch_on(dev, GAN_BATCH, 512, 512, 170 + i) for i in range(N_GAN_STEPS)]
@@ -1525,7 +1601,7 @@ def oneshot_train_phases(torch, dev, card):
                 fail(f"the small one-shot step, {label}, disagrees in {phase}: {bad}")
 
     t0 = time.perf_counter()
-    for seed in (18, 28):
+    for seed in SMALL_ONESHOT_SEEDS:
         results = run_routes(seed)
         compare(f"seed {seed}, card B3 vs CPU", results["card B3"], results["CPU"])
         compare(f"seed {seed}, card grid_sample vs CPU", results["card grid_sample"],
@@ -1533,9 +1609,11 @@ def oneshot_train_phases(torch, dev, card):
         compare(f"seed {seed}, card B3 vs card grid_sample", results["card B3"],
                 results["card grid_sample"])
         del results
-    print(f"[18] small one-shot step checked on two seeds in {time.perf_counter() - t0:.1f} s")
+    print(f"[18] small one-shot step checked on seeds {SMALL_ONESHOT_SEEDS} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 19
+    mark("19")
     t0 = time.perf_counter()
     # the float32 generator with the reference's 48+48 training samples
     net, D = oneshot_train_models(seed=19, device=dev)
@@ -1752,8 +1830,8 @@ def fewshot_train_phases(torch, dev, card):
     # a 4-frame clip in chunks of 2 (one carried GRU state) through the tiny
     # GRU network; LPIPS as the L1 distance (the CLI's fallback). Every phase
     # from the same weights; Ireal trains the tri-plane decoder, Igen the
-    # texture decoder; D with R1 on seed 18, without on seed 28. Both card
-    # routes share B1/B2 for the no-grad renders, the grad-carrying render
+    # texture decoder; D without and with R1. Both card routes share B1/B2
+    # for the no-grad renders, the grad-carrying render
     # takes B3 + its transpose or `F.grid_sample`; the CPU runs the plain
     # versions of the first route's kernels.
     T_small, Tc_small = 4, 2
@@ -1768,7 +1846,7 @@ def fewshot_train_phases(torch, dev, card):
         net_gpu, d_gpu = small_train_models(fewshot_train_models, seed, dev)
         idx = li.fewshot_fake_idx(seed, 0, T_small, Tc_small)
         phases = (("Ireal", li.fewshot_tri_trainable), ("Igen", li.fewshot_tex_trainable),
-                  ("D", None))
+                  ("D", None), ("D+R1", None))
         results = {}
         for label, d, route in routes:
             n, D = (net_cpu, d_cpu) if d.type == "cpu" else (net_gpu, d_gpu)
@@ -1780,9 +1858,9 @@ def fewshot_train_phases(torch, dev, card):
                 n.load_state_dict(sd0)
                 D.load_state_dict(dsd0)
                 n0 = launch_counts()
-                if phase == "D":
+                if phase.startswith("D"):
                     aux = d_step(TrainState(D, torch.optim.Adam(D.parameters(), lr=1e-4)), batch,
-                                 do_r1=seed == 18)
+                                 do_r1=phase == "D+R1")
                     trained = D
                 else:
                     aux = step(TrainState(n, li.masked_adam(n, 1e-4, pred)), batch,
@@ -1792,7 +1870,7 @@ def fewshot_train_phases(torch, dev, card):
                     torch.cuda.synchronize()
                 got = {k: v - n0[k] for k, v in launch_counts().items()}
                 want = (dict.fromkeys(KERNEL_COUNTERS, 0) if d.type == "cpu" else
-                        fewshot_expected(phase, T_small, Tc_small, route))
+                        fewshot_expected(phase.split("+")[0], T_small, Tc_small, route))
                 if got != want:
                     fail(f"the small few-shot {phase} ({label}) launched {got}, expected {want}")
                 grads = {k: p.grad.detach().float().cpu() for k, p in trained.named_parameters()
@@ -1808,7 +1886,7 @@ def fewshot_train_phases(torch, dev, card):
         (+1e-7); the trained module's gradient (the scheduled decoder in the I
         phases, D in the D phase) to 1e-3 of its norm, each entry to 1e-3 of
         the largest entry (phase 18's bars)."""
-        for phase in ("Ireal", "Igen", "D"):
+        for phase in ("Ireal", "Igen", "D", "D+R1"):
             (aux, grads), (aux_r, grads_r) = got[phase], ref[phase]
             bad = [k for k in aux_r if not (np.isfinite(aux[k]) and
                                            abs(aux[k] - aux_r[k]) <= 1e-3 * abs(aux_r[k]) + 1e-7)]
@@ -1827,7 +1905,7 @@ def fewshot_train_phases(torch, dev, card):
                 fail(f"the small few-shot step, {label}, disagrees in {phase}: {bad}")
 
     t0 = time.perf_counter()
-    for seed in (18, 28):
+    for seed in SMALL_FEWSHOT_SEEDS:
         results = run_routes(seed)
         compare(f"seed {seed}, card B3 vs CPU", results["card B3"], results["CPU"])
         compare(f"seed {seed}, card grid_sample vs CPU", results["card grid_sample"],
@@ -1835,9 +1913,11 @@ def fewshot_train_phases(torch, dev, card):
         compare(f"seed {seed}, card B3 vs card grid_sample", results["card B3"],
                 results["card grid_sample"])
         del results
-    print(f"[20] small few-shot step checked on two seeds in {time.perf_counter() - t0:.1f} s")
+    print(f"[20] small few-shot step checked on seeds {SMALL_FEWSHOT_SEEDS} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- phase 21
+    mark("21")
     t0 = time.perf_counter()
     net, D = fewshot_train_models(seed=21, device=dev)
     torch.manual_seed(21)
@@ -1935,7 +2015,7 @@ def fewshot_train_phases(torch, dev, card):
     if [p[:3] for p in phases] != expect_phases:
         fail(f"train_fewshot ran the phases {[p[:3] for p in phases]}, expected {expect_phases}")
     expect = dict.fromkeys(KERNEL_COUNTERS, 0)
-    step_ms = {}  # the second pass of the curriculum (steps 5-9), by T
+    step_ms, seen, timed = {}, set(), []  # by T, the steps whose T ran before
     for i, (unet, T, r1) in enumerate(sched):
         run = phases[3 * i:3 * i + 3]
         for ph, _, _, _, got in run:
@@ -1944,8 +2024,10 @@ def fewshot_train_phases(torch, dev, card):
                 fail(f"step {i} ({ph}, T={T}) launched {got}, expected {want}")
             expect = {k: expect[k] + want[k] for k in expect}
         ms = [p[3] for p in run]
-        if i >= 5:
+        if T in seen:
             step_ms.setdefault(T, []).append(sum(ms))
+            timed.append(i)
+        seen.add(T)
         print(f"[21] step {i}: T={T}, {unet} decoder; Ireal {ms[0]:.3f} ms + Igen {ms[1]:.3f} "
               f"ms + D{'+R1' if r1 else ''} {ms[2]:.3f} ms (host clock, synchronized); moved "
               f"{moved[i]}; " + " ".join(f"{k}={v:.6g}" for k, v in aux_all[i].items()))
@@ -1957,9 +2039,9 @@ def fewshot_train_phases(torch, dev, card):
     for k, params in frozen.items():
         if changed(frozen0[k], params):
             fail(f"the frozen {k} moved")
-    # the second pass of the curriculum (steps 5-9) is timed: first calls
-    # (cuDNN's algorithm choices, allocations) fall in the first
-    warm = phases[15:]
+    # a step is timed when its T has run before: first calls (cuDNN's
+    # algorithm choices, allocations) fall in each T's first step
+    warm = [p for i in timed for p in phases[3 * i:3 * i + 3]]
     by_phase = {}
     for ph, T, r1, ms, _ in warm:
         by_phase.setdefault(f"{ph} T={T}", []).append(ms)
@@ -1967,7 +2049,7 @@ def fewshot_train_phases(torch, dev, card):
           f"{N_FEWSHOT_TRAIN} steps of `train_fewshot` (fused / pallas, curriculum "
           f"{'/'.join(map(str, FEWSHOT_CURRICULUM))} in chunks of {FEWSHOT_TC}) in "
           f"{total_s:.1f} s with the final snapshot "
-          f"({snap_bytes / 2 ** 30:.2f} GiB); second pass, ms/step by T: " +
+          f"({snap_bytes / 2 ** 30:.2f} GiB); steps {timed} (each T's repeats), ms/step by T: " +
           ", ".join(f"T={T} {np.mean(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
                     for T, v in sorted(step_ms.items())) + "; per phase " +
           ", ".join(f"{k} {np.mean(v):.3f}" for k, v in by_phase.items()) +
@@ -2736,7 +2818,7 @@ def parallel_phases(torch, dev, card):
             torch.cuda.empty_cache()
             G, D, init, cfg, batch = dp_gan_setup(torch, dev, d_fp16_res=4)
             ms = {"no mesh": [], "mesh": []}
-            order = ["no mesh", "mesh"] * 2 + ["no mesh", "mesh", "mesh", "no mesh"] * 3
+            order = ["no mesh", "mesh"] * 2 + ["no mesh", "mesh", "mesh", "no mesh"] * 2
             for i, label in enumerate(order):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -2783,6 +2865,7 @@ def parallel_phases(torch, dev, card):
     del a, m, b
 
     # ---------------------------------------------------------------- 25b
+    mark("25b")
     t0 = time.perf_counter()
     refs = {}
     with tempfile.TemporaryDirectory() as ref_dir:
@@ -3353,6 +3436,376 @@ def dp_negative_cases(torch, mesh):
     return out
 
 
+# ---------------------------------------------------------------- phase 27
+
+
+def sphere_mesh(n_lat, n_lon, seed):
+    """A UV sphere scaled to a head in the Next3D ortho window (the tests'
+    stand-in for FLAME: no FLAME asset is in the repository), its topology
+    with an all-ones face mask, and [1, V + 68, 3] vertices whose last 68
+    rows (seeded vertex picks) stand in for the landmarks."""
+    import numpy as np
+
+    from invertavatar_torch.models.next3d import make_topology
+
+    lat = np.linspace(0.12, np.pi - 0.12, n_lat)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    verts = np.stack([np.sin(th) * np.sin(ph), np.cos(th), np.sin(th) * np.cos(ph)],
+                     axis=-1).reshape(-1, 3).astype(np.float32) * np.float32(0.12)
+    jj, ii = np.meshgrid(np.arange(n_lon), np.arange(n_lat), indexing="xy")
+    uvs = np.stack([jj / n_lon, ii / (n_lat - 1)], axis=-1).reshape(-1, 2).astype(np.float32)
+    i, j = np.meshgrid(np.arange(n_lat - 1), np.arange(n_lon), indexing="ij")
+    a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+    c, d = a + n_lon, b + n_lon
+    faces = np.stack([np.stack([a, b, c], -1), np.stack([b, d, c], -1)], axis=2)
+    faces = faces.reshape(-1, 3).astype(np.int32)
+    topo = make_topology(uvs, faces, faces, np.ones((1, 256, 256, 1), np.float32),
+                         n_verts=len(verts))
+    lms = verts[np.random.RandomState(seed).choice(len(verts), 68)]
+    return topo, np.concatenate([verts, lms], axis=0)[None]
+
+
+def faces_per_tile_by_view(torch, topo, v, tile=32, res=256):
+    """The largest count of candidate faces (bbox members, front-facing, on
+    screen: the rasterizer's "sort" binning before its cap) in any 32² tile
+    of each of the four Next3D ortho views."""
+    from invertavatar_torch.models.next3d import _VIEWS_DEG, _angle2matrix_np, transform_to_view
+
+    faces = torch.from_numpy(topo.faces.astype("int64"))
+    verts = torch.from_numpy(v[:, :topo.n_verts])
+    out = []
+    for view in _VIEWS_DEG:
+        tv = transform_to_view(verts, torch.from_numpy(_angle2matrix_np(view)))[0]
+        px, py = (tv[:, 0] + 1) / 2 * res, (tv[:, 1] + 1) / 2 * res
+        tx, ty = px[faces], py[faces]
+        area2 = ((tx[:, 1] - tx[:, 0]) * (ty[:, 2] - ty[:, 0])
+                 - (tx[:, 2] - tx[:, 0]) * (ty[:, 1] - ty[:, 0]))
+        lo_x, hi_x, lo_y, hi_y = tx.amin(1), tx.amax(1), ty.amin(1), ty.amax(1)
+        valid = (area2 > 1e-12) & ~((hi_x < 0) | (lo_x >= res) | (hi_y < 0) | (lo_y >= res))
+        n = res // tile
+
+        def span(lo, hi):
+            return (torch.floor(lo / tile).clamp(0, n - 1).long(),
+                    torch.floor(hi / tile).clamp(0, n - 1).long())
+
+        (x0, x1), (y0, y1) = span(lo_x, hi_x), span(lo_y, hi_y)
+        t = torch.arange(n)
+        member = ((y0[None, None] <= t[:, None, None]) & (y1[None, None] >= t[:, None, None])
+                  & (x0[None, None] <= t[None, :, None]) & (x1[None, None] >= t[None, :, None])
+                  & valid)
+        out.append(int(member.sum(-1).max()))
+    return out
+
+
+def _tensors(out):
+    """A module's output as a flat tuple of tensors (dicts by key, tuples and
+    lists in order, None dropped)."""
+    if isinstance(out, dict):
+        out = [out[k] for k in sorted(out)]
+    if not isinstance(out, (tuple, list)):
+        return (out,)
+    return tuple(t for o in out if o is not None for t in _tensors(o))
+
+
+def styleunet_specs(torch, gen, width):
+    """Phase 27a's seven style-U-Net configurations at `width` ("small": the
+    tests' tiny widths; "full": the widths the classes default to, a
+    3-channel condition at in_size, 32 output channels at 256², B=1, T=4):
+    [(label, build(device), inputs on the CPU, call(module, *inputs))]."""
+    from invertavatar_torch.models.encoders import styleunet as su
+
+    kw = dict(STYLEUNET_SMALL if width == "small" else STYLEUNET_FULL)
+    B, T = (2, 3) if width == "small" else (1, STYLEUNET_T)
+    res_in = kw["in_size"]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    ch4 = min(kw["channel_base"] // 4, kw["channel_max"])
+    new_kw = dict(kw, in_size=kw["img_resolution"], num_cond_res=kw["img_resolution"])
+    plain_kw = {k: kw[k] for k in ("img_resolution", "img_channels", "channel_base",
+                                   "channel_max")}
+    return [
+        ("CondSynthesisNetworkWithGRU", lambda d: su.CondSynthesisNetworkWithGRU(**kw, device=d),
+         (rand(B, T, 3, res_in, res_in),), lambda m, x: m(x)),
+        ("CondSynthesisNetwork", lambda d: su.CondSynthesisNetwork(**kw, device=d),
+         (rand(B, 3, res_in, res_in),), lambda m, x: m(x, return_list=True)),
+        ("CondSynthesisNetwork residual_arch",
+         lambda d: su.CondSynthesisNetwork(**dict(kw, img_channels=3), residual_arch=True,
+                                           device=d),
+         (rand(B, 3, res_in, res_in),), lambda m, x: m(x)),
+        # the encoder must reach the output's size (in_size = img_resolution)
+        ("CondSynthesisNetworkNew", lambda d: su.CondSynthesisNetworkNew(**new_kw, device=d),
+         (rand(B, 3, new_kw["in_size"], new_kw["in_size"]),),
+         lambda m, x: m(x, return_list=True)),
+        ("CondSynthesisNetworkWithConvFusion",
+         lambda d: su.CondSynthesisNetworkWithConvFusion(**kw, T=T, device=d),
+         (rand(B, T, 3, res_in, res_in),), lambda m, x: m(x)),
+        ("CondSynthesisNetworkSFT", lambda d: su.CondSynthesisNetworkSFT(**kw, device=d),
+         (rand(B, T, 3, res_in, res_in),), lambda m, x: m(x)),
+        ("PlainSynthesisNetwork", lambda d: su.PlainSynthesisNetwork(**plain_kw, device=d),
+         (rand(B, ch4, 4, 4), rand(B, kw["img_channels"], 4, 4)),
+         lambda m, x, img: m(x, img, return_list=True)),
+    ]
+
+
+def styleunet_phase(torch, dev, card):
+    """Phase 27a: the seven style-U-Net configurations, small on the card
+    against the CPU (1e-4 of each output's largest magnitude), then at full
+    width on the card: finite, ms per call and peak memory. No kernel."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(27)
+    for i, (label, build, inputs, call) in enumerate(styleunet_specs(torch, gen, "small")):
+        def seeded(d, build=build, i=i):
+            torch.manual_seed(270 + i)
+            return build(d)
+
+        _card_vs_cpu(torch, dev, "[27a]", f"{label} at the tests' widths", seeded, inputs,
+                     lambda m, *x, call=call: _tensors(call(m, *x)), 1e-4)
+    for i, (label, build, inputs, call) in enumerate(styleunet_specs(torch, gen, "full")):
+        torch.manual_seed(280 + i)
+        m = build(dev).eval()
+        x = tuple(t.to(dev) for t in inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms, out = _host_ms(torch, lambda: call(m, *x))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs = _tensors(out)
+        print(f"[27a] {label} at full width ({sum(p.numel() for p in m.parameters()) / 1e6:.1f} "
+              f"M parameters; input {[tuple(t.shape) for t in x]}): {ms:.3f} ms per call (host "
+              f"clock, synchronized, median of {N_MODULE_TIMED} after {N_MODULE_WARMUP}), peak "
+              f"{peak:.3f} GiB on {card}; {len(outs)} outputs, the first "
+              f"{tuple(outs[0].shape)}")
+        if not all(_finite(o) for o in outs):
+            fail(f"[27a] {label} at full width gave non-finite values")
+        del m, x, out, outs
+    torch.cuda.empty_cache()
+    print(f"[27a] took {time.perf_counter() - t0:.1f} s")
+
+
+def _next3d(torch, cfg, rk, topo, device, seed):
+    """A Next3D generator of `cfg` filled by `init_flagship(seed)` (built on
+    `device`)."""
+    from invertavatar_torch.flagship import init_flagship
+    from invertavatar_torch.models.next3d import Next3DTriPlaneGenerator
+
+    with torch.device(device):
+        G = Next3DTriPlaneGenerator(**cfg, topology=topo, rendering_kwargs=dict(rk),
+                                    device=device)
+    return init_flagship(G, seed=seed).eval()
+
+
+def _route_frame(torch, G, rk, ws, c, v, rmod, calls=None):
+    """One evaluation frame of G under the rendering kwargs `rk`, the B3
+    calls recorded into `calls`."""
+    G.rendering_kwargs = dict(rk)
+    with torch.inference_mode(), recording(rmod, "sample_planes_windowed",
+                                           [] if calls is None else calls):
+        return G.synthesis(ws, c, v, noise_mode="const", evaluation=True)
+
+
+def _payload(torch, call):
+    """The payload dtype of a recorded `sample_planes_windowed` call."""
+    args, kw, _ = call
+    return args[2] if len(args) > 2 else kw.get("payload_dtype", torch.float32)
+
+
+def b3_record(torch, ps, card, tag, label, call):
+    """B3 on one recorded Next3D render call (planes, grid, payload dtype):
+    both payloads against the plain version, the call's own payload timed
+    with its plain version and `F.grid_sample` on planes of that dtype;
+    returns its kernel record."""
+    import torch.nn.functional as F
+
+    (planes, grid, *_), _, out = call
+    dt = _payload(torch, call)
+    errs = b3_forward_check(torch, ps, tag, label, planes, grid, out)
+    N, H, W, C = planes.shape
+    n_pts = N * grid.shape[1] * grid.shape[2]
+    size = 2 if dt == torch.bfloat16 else 4
+    nbytes = grid.numel() * 4 + planes.numel() * size + n_pts * C * size
+    b, by = bound(nbytes, n_pts * 4 * C * 2)
+    ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid, dt), "sample_kernel<")
+    plain = device_ms(lambda: ps.sample_planes_windowed_reference(planes, grid, dt))
+    planes_nchw = planes.permute(0, 3, 1, 2).contiguous().to(dt)
+    grid_l = grid.to(dt)
+    lib = device_ms(lambda: F.grid_sample(planes_nchw, grid_l, mode="bilinear",
+                                          padding_mode="zeros", align_corners=False))
+    print(f"{tag} B3 {label} {str(dt)[6:]} payload: planes {tuple(planes.shape)}, grid "
+          f"{tuple(grid.shape)}; kernel {ms:.4f} ms, plain {plain:.4f} ms, F.grid_sample on "
+          f"{str(dt)[6:]} planes {lib:.4f} ms, bound {b:.4f} ms ({by}; {nbytes / 1e6:.1f} MB) on "
+          f"{card}")
+    return dict(route="cuda", source="invertavatar_torch/csrc/plane_sample.cu",
+                replaces="invertavatar_tpu/ops/pallas_plane_sample.py:39",
+                max_abs_err=errs[dt], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib)
+
+
+def next3d_phases(torch, dev, card, ps, rmod):
+    """Phases 27b-27c: the Next3D generator small on the card against the CPU
+    on three routes, then at full width; the legacy generator at full
+    width. Returns the kernel records of B3's Next3D routes and each
+    counter's launches over 27c's timed frames."""
+    import numpy as np
+
+    from invertavatar_torch.flagship import example_inputs, init_flagship
+    from invertavatar_torch.models.next3d import LegacyTriPlaneGenerator
+
+    t0 = time.perf_counter()
+    z_np, c_np, _ = example_inputs(1)
+    routes = {"exact": {}, "pallas_exact": dict(pallas_coarse=True, pallas_exact=True),
+              "pallas_coarse": dict(pallas_coarse=True)}
+    b3_payload = {"exact": None, "pallas_exact": torch.float32, "pallas_coarse": torch.bfloat16}
+
+    # ---------------------------------------------------------------- 27b
+    mark("27b")
+    topo, v_np = sphere_mesh(*N3D_SMALL_SPHERE, seed=27)
+    sides = (("card", dev), ("CPU", torch.device("cpu")))
+    gens = {side: _next3d(torch, N3D_SMALL, N3D_SMALL_RK, topo, d, 27) for side, d in sides}
+    small_errs, outs = {}, {}
+    for route, extra in routes.items():
+        for side, d in sides:
+            z, c, v = (torch.from_numpy(a).to(d) for a in (z_np[:, :32], c_np, v_np))
+            with torch.inference_mode():
+                ws = gens[side].mapping(z, c)
+            calls = []
+            reset_launch_counts()
+            o = _route_frame(torch, gens[side], dict(N3D_SMALL_RK, **extra), ws, c, v, rmod,
+                             calls)
+            outs[(route, side)] = {k: t.float().cpu() for k, t in o.items()}
+            if side != "card":
+                continue
+            torch.cuda.synchronize()
+            got, payloads = launch_counts(), [_payload(torch, cl) for cl in calls]
+            want = dict(dict.fromkeys(KERNEL_COUNTERS, 0), plane_sample=len(calls))
+            expect = [] if b3_payload[route] is None else [b3_payload[route]]
+            print(f"[27b] small Next3D frame, {route} route on the card: B3 payloads {payloads} "
+                  f"(expected {expect}), launches {got}")
+            if payloads != expect or got != want:
+                fail(f"[27b] the small {route} frame launched {got} with B3 payloads "
+                     f"{payloads}, expected {want} and {expect}")
+            if calls:
+                (planes, grid, *_), _, out = calls[0]
+                small_errs[route] = b3_forward_check(
+                    torch, ps, "[27b]", f"small Next3D {route}", planes, grid, out)[expect[0]]
+        _bands("[27b]", f"small Next3D frame, {route} route, card against the CPU",
+               outs[(route, "card")], outs[(route, "CPU")])
+    for route in ("pallas_exact", "pallas_coarse"):
+        _bands("[27b]", f"small Next3D frame on the card, the {route} route against the exact "
+               "route", outs[(route, "card")], outs[("exact", "card")])
+    del gens, outs
+    print(f"[27b] took {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- 27c
+    mark("27c")
+    t0 = time.perf_counter()
+    topo, v_np = sphere_mesh(*N3D_FULL_SPHERE, seed=28)
+    per_tile = faces_per_tile_by_view(torch, topo, v_np)
+    print(f"[27c] mesh: a UV sphere of {topo.n_verts} vertices and {len(topo.faces)} faces "
+          f"(FLAME: 5,023 and 9,976) + 68 landmarks; most candidate faces in a 32² tile by "
+          f"view {per_tile} (cap {N3D_FULL['faces_per_tile']})")
+    if max(per_tile) > N3D_FULL["faces_per_tile"]:
+        fail(f"[27c] a 32² tile holds {max(per_tile)} candidate faces, over the cap")
+    G = _next3d(torch, N3D_FULL, N3D_FULL_RK, topo, dev, 27)
+    z, c, v = (torch.from_numpy(a).to(dev) for a in (z_np, c_np, v_np))
+    with torch.inference_mode():
+        ws = G.mapping(z, c)
+    torch.cuda.synchronize()
+    print(f"[27c] full-width Next3D generator built, weights filled in "
+          f"{time.perf_counter() - t0:.2f} s: {sum(p.numel() for p in G.parameters()) / 1e6:.1f} "
+          f"M parameters")
+    rk_k = dict(N3D_FULL_RK)  # pallas_coarse on: B3 with the bf16 payload
+    rk_e = {k: val for k, val in rk_k.items() if k != "pallas_coarse"}
+    calls = []
+    out_k = _route_frame(torch, G, rk_k, ws, c, v, rmod, calls)
+    if len(calls) != 1:
+        fail(f"[27c] a frame made {len(calls)} B3 calls, expected 1 (the coarse pass)")
+    records = {"next3d_plane_sample_bf16": b3_record(torch, ps, card, "[27c]",
+                                                     "full-width Next3D coarse pass", calls[0])}
+    del calls
+    out_e = _route_frame(torch, G, rk_e, ws, c, v, rmod)
+    _bands("[27c]", "the kernel route (pallas_coarse, bf16 B3) against the exact route",
+           out_k, out_e)
+    calls = []
+    out_x = _route_frame(torch, G, dict(rk_k, pallas_exact=True), ws, c, v, rmod, calls)
+    _bands("[27c]", "the pallas_exact route (float32 B3) against the exact route", out_x, out_e)
+    records["next3d_plane_sample_fp32"] = b3_record(
+        torch, ps, card, "[27c]", "full-width Next3D coarse pass", calls[0])
+    del calls, out_e, out_x
+
+    launches = {}
+    for route, extra, n in (("pallas_coarse", rk_k, N3D_FRAMES),
+                            ("pallas_exact", dict(rk_k, pallas_exact=True), N3D_EXACT_FRAMES)):
+        G.rendering_kwargs = dict(extra)
+        with torch.inference_mode():
+            for _ in range(N_WARMUP):
+                G.synthesis(ws, c, v, noise_mode="const", evaluation=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                out = G.synthesis(ws, c, v, noise_mode="const", evaluation=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) / n * 1e3
+        launches[route] = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        img = out["image"]
+        with torch.inference_mode():  # the device's busy time per frame (all its ops)
+            busy = device_ms(lambda: G.synthesis(ws, c, v, noise_mode="const", evaluation=True),
+                             n=3, warmup=1)
+        want = dict.fromkeys(KERNEL_COUNTERS, 0)
+        want["plane_sample"] = n
+        print(f"[27c] Next3D frame, {route} route: {n} frames of {tuple(img.shape)} after "
+              f"{N_WARMUP} warm-up, {ms:.3f} ms/frame (host clock, synchronized, B=1, "
+              f"{N3D_FULL['neural_rendering_resolution']}² render, {rk_k['depth_resolution']}+"
+              f"{rk_k['depth_resolution_importance']} samples, SR to "
+              f"{N3D_FULL['img_resolution']}²), device busy {busy:.3f} ms/frame (idle share "
+              f"{1 - busy / ms:.3f}), peak {peak:.3f} GiB on {card}; "
+              f"launches {launches[route]}, expected {want}; image mean "
+              f"{img.float().mean().item():.4f} std {img.float().std().item():.4f}")
+        if tuple(img.shape) != (1, 3, 512, 512) or not all(_finite(t) for t in out.values()):
+            fail(f"[27c] the {route} frame is not a finite [1, 3, 512, 512]")
+        if launches[route] != want:
+            fail(f"[27c] the {route} route launched {launches[route]} in {n} frames, "
+                 f"expected {want}")
+        records["next3d_plane_sample_bf16" if route == "pallas_coarse" else
+                "next3d_plane_sample_fp32"].update(launches=launches[route]["plane_sample"],
+                                                    frame_ms=ms, frame_busy_ms=busy,
+                                                    peak_gib=peak)
+    del G, out, out_k, ws
+    torch.cuda.empty_cache()
+
+    with torch.device(dev):
+        L = LegacyTriPlaneGenerator(**N3D_FULL, topology=topo, rendering_kwargs=dict(rk_k),
+                                    device=dev)
+    init_flagship(L, seed=29).eval()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with torch.inference_mode():
+        ms, out = _host_ms(torch, lambda: L(z, c, v[:, :topo.n_verts], noise_mode="const",
+                                            evaluation=True), warmup=1, n=3)
+    launches["legacy"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict(dict.fromkeys(KERNEL_COUNTERS, 0), plane_sample=4)
+    print(f"[27c] LegacyTriPlaneGenerator forward at the same width (pallas_coarse): {ms:.3f} "
+          f"ms (host clock, synchronized, median of 3 after 1), peak {peak:.3f} GiB on {card}; "
+          f"image {tuple(out['image'].shape)} mean {out['image'].float().mean().item():.4f}; "
+          f"launches {launches['legacy']}, expected {want}")
+    if not all(_finite(t) for t in out.values()):
+        fail("[27c] the legacy generator's output is not finite")
+    if launches["legacy"] != want:
+        fail(f"[27c] the legacy forwards launched {launches['legacy']}, expected {want}")
+    del L, out
+    torch.cuda.empty_cache()
+    records["next3d_plane_sample_bf16"]["small_max_abs_err"] = small_errs["pallas_coarse"]
+    records["next3d_plane_sample_fp32"]["small_max_abs_err"] = small_errs["pallas_exact"]
+    print(f"[27c] took {time.perf_counter() - t0:.1f} s")
+    return records, launches
+
+
 def main(argv=None):
     import argparse
 
@@ -3400,6 +3853,7 @@ def main(argv=None):
     print_build("[2]", "fused_render")
 
     # ------------------------------------------------------------- phases 3-4
+    mark("3-4")
     rk = dict(FLAGSHIP_RENDERING_KWARGS)
     rk.pop("ray_start")
     rk.pop("ray_end")
@@ -3418,6 +3872,7 @@ def main(argv=None):
     del planes
 
     # ---------------------------------------------------------------- phase 5
+    mark("5")
     small = dict(SMALL_FRAME_CFG, rendering_kwargs=dict(FLAGSHIP_RENDERING_KWARGS,
                                                         **SMALL_FRAME_RK))
     torch.manual_seed(1)
@@ -3441,6 +3896,7 @@ def main(argv=None):
     del g_cpu, g_gpu
 
     # ---------------------------------------------------------------- phase 6
+    mark("6")
     t0 = time.perf_counter()
     G = init_flagship(flagship_generator(device="cuda"), seed=0)
     z, c, uvc = (torch.from_numpy(a).to(dev) for a in (z_np, c_np, uvc_np))
@@ -3489,19 +3945,23 @@ def main(argv=None):
     del G, static, tex, cache, tex_cat
     torch.cuda.empty_cache()
 
+    mark("7")
     kernels += e4e_phases(torch, dev, card, ps, rmod, args.earlier_src)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 11-13
+    mark("11")
     mgr, traj, online_launches = online_phase(torch, dev, card, fr)
     torch.cuda.empty_cache()
     absorb_launches, drive_launches = fewshot_phases(torch, dev, card, fr, mgr, traj)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 14-17
+    mark("14")
     invert_launches, os_drive_launches = oneshot_phases(torch, dev, card, fr, mgr, traj)
     del mgr, traj
     torch.cuda.empty_cache()
+    mark("16")
     fr.fused_render.launches = fr.fused_merged_march.launches = 0
     gan_phases(torch, dev, card)
     gan_launches = {"fused_render": fr.fused_render.launches,
@@ -3509,28 +3969,45 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 18-21
+    mark("18")
     os_train_launches, os_train_checks = oneshot_train_phases(torch, dev, card)
     torch.cuda.empty_cache()
+    mark("20")
     fs_train_launches, fs_train_checks = fewshot_train_phases(torch, dev, card)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 22-24
+    mark("22")
     preprocess_phase(torch, dev, card)
     torch.cuda.empty_cache()
+    mark("23")
     metric_launches, metric_checks = gan_metrics_phase(torch, dev, card, fr, rmod)
     torch.cuda.empty_cache()
+    mark("24")
     proj_launches, proj_checks, proj_extra = projector_phase(torch, dev, card, ps, rmod)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 25
+    mark("25a")
     dp_launches = parallel_phases(torch, dev, card)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 26
+    mark("26a")
     cond_launches, cond_checks = with_condition_phase(torch, dev, card, fr, rmod)
+    mark("26b")
     remat_launches = remat_phase(torch, dev, card)
+    mark("26c")
     later_modules_phase(torch, dev, card)
+    mark("26e")
     tensorboard_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 27
+    mark("27a")
+    styleunet_phase(torch, dev, card)
+    n3d_records, n3d_launches = next3d_phases(torch, dev, card, ps, rmod)
+    mark("end")
     cond_checks = {r["name"]: r for r in cond_checks}
     for k in kernels:
         name = k["name"]
@@ -3541,7 +4018,8 @@ def main(argv=None):
                     for path in ("dp_gan", "dp_oneshot", "dp_fewshot")},
                  "synthesis_withCondition": cond_launches[name],
                  **{f"{path}_remat_{setting.replace(' ', '_')}": n[name]
-                    for path, by in remat_launches.items() for setting, n in by.items()}}
+                    for path, by in remat_launches.items() for setting, n in by.items()},
+                 **{f"next3d_{route}": n[name] for route, n in n3d_launches.items()}}
         if name in cond_checks:
             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
                 k[f"synthesis_withCondition_{key}"] = cond_checks[name][key]
@@ -3577,6 +4055,14 @@ def main(argv=None):
                 k[f"{path}_bound_ms"] = {label: b for label, (_, _, b) in at.items()}
             k["projector_plain_ms"] = {label: t[0] for label, t in proj_extra[name].items()}
             k["projector_library_ms"] = {label: t[1] for label, t in proj_extra[name].items()}
+    for name, r in n3d_records.items():
+        payload = "pallas_coarse" if name.endswith("bf16") else "pallas_exact"
+        kernels.append(dict(name=name, **r, launches_by_path={
+            f"next3d_small_{payload}": 1, f"next3d_{payload}": r["launches"],
+            **({"next3d_legacy": n3d_launches["legacy"]["plane_sample"]}
+               if payload == "pallas_coarse" else {})}))
+    print("[end] seconds by phase: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
     print(f"[end] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -54,16 +54,36 @@ _PLANE_BASES = np.array(
     dtype=np.float64,
 )
 PLANE_AXES_INV = np.linalg.inv(_PLANE_BASES).astype(np.float32)  # [3, 3, 3]
-# The inverses are permutation matrices, so projecting is picking coordinates:
-# plane p's component j is coordinate argmax_i inv[p, i, j]. Picking is exact
-# (a matmul could run in TF32 on the card).
-_AXIS_PICKS = tuple(int(i) for i in PLANE_AXES_INV[:, :, :2].argmax(axis=1).reshape(-1))
+
+# The legacy Next3D plane set: the third plane swaps x and z, so it reads
+# (z, y) where the v20 set reads (z, x).
+_NEXT3D_PLANE_BASES = np.array(
+    [
+        [[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+        [[1, 0, 0], [0, 0, 1], [0, 1, 0]],
+        [[0, 0, 1], [0, 1, 0], [1, 0, 0]],
+    ],
+    dtype=np.float64,
+)
+NEXT3D_PLANE_AXES_INV = np.linalg.inv(_NEXT3D_PLANE_BASES).astype(np.float32)
 
 
-def project_onto_planes(coordinates: torch.Tensor) -> torch.Tensor:
-    """[B, M, 3] -> [B, 3, M, 2] plane-space xy."""
+def _axis_picks(axes_inv: np.ndarray) -> tuple:
+    """The inverses are permutation matrices, so projecting is picking
+    coordinates: plane p's component j is coordinate argmax_i inv[p, i, j].
+    Picking is exact (a matmul could run in TF32 on the card)."""
+    return tuple(int(i) for i in axes_inv[:, :, :2].argmax(axis=1).reshape(-1))
+
+
+_AXIS_PICKS = _axis_picks(PLANE_AXES_INV)
+_PLANE_MODE_PICKS = {"v20": _AXIS_PICKS, "next3d": _axis_picks(NEXT3D_PLANE_AXES_INV)}
+
+
+def project_onto_planes(coordinates: torch.Tensor, picks: tuple = _AXIS_PICKS) -> torch.Tensor:
+    """[B, M, 3] -> [B, 3, M, 2] plane-space xy (the v20 planes unless `picks`
+    names another set)."""
     B, M, _ = coordinates.shape
-    proj = torch.stack([coordinates[..., i] for i in _AXIS_PICKS], dim=-1)  # [B, M, 6]
+    proj = torch.stack([coordinates[..., i] for i in picks], dim=-1)  # [B, M, 6]
     return proj.reshape(B, M, 3, 2).permute(0, 2, 1, 3)
 
 
@@ -100,7 +120,13 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int, u: 
 
 class ImportanceRenderer:
     """Stateless renderer; `decoder` maps sampled features [B, 3, M, C] to
-    {"rgb", "sigma"}."""
+    {"rgb", "sigma"}. `plane_mode="next3d"` projects onto the legacy Next3D
+    plane set; the default is the shipped v20 set."""
+
+    def __init__(self, plane_mode: str = "v20"):
+        if plane_mode not in _PLANE_MODE_PICKS:
+            raise ValueError(f"plane_mode must be 'v20' or 'next3d', not {plane_mode!r}")
+        self.picks = _PLANE_MODE_PICKS[plane_mode]
 
     def __call__(
         self,
@@ -172,7 +198,7 @@ class ImportanceRenderer:
             return planes.to(torch.bfloat16).float() if bf16 else planes.float()
 
         def sample_feats(coords_flat):  # [B, M, 3] -> [B, 3, M, C]
-            proj = project_onto_planes(box * coords_flat.float())
+            proj = project_onto_planes(box * coords_flat.float(), self.picks)
             return _sample(payload(fast and bf16_gather), proj)
 
         planes_cl = []  # the channels-last [3B, H, W, C] copy, made at first use
@@ -185,7 +211,7 @@ class ImportanceRenderer:
 
         def sample_feats_coarse(coords):  # [B, R, S, 3] -> [B, 3, R*S, C]
             S_ = coords.shape[2]
-            proj = project_onto_planes(box * coords.reshape(Bp, -1, 3).float())
+            proj = project_onto_planes(box * coords.reshape(Bp, -1, 3).float(), self.picks)
             if grad_pallas:
                 out = sample_planes_windowed_cvjp(
                     channels_last(), proj.reshape(Bp * n_planes, R, S_, 2))
@@ -200,7 +226,7 @@ class ImportanceRenderer:
 
         def run_fused(coords):  # [B, R, n, 3] -> colors [B,R,n,C], sigma [B,R,n,1]
             n = coords.shape[2]
-            proj = project_onto_planes(box * coords.reshape(Bp, -1, 3).float())
+            proj = project_onto_planes(box * coords.reshape(Bp, -1, 3).float(), self.picks)
             proj = proj.reshape(Bp, n_planes, R, n, 2)
             outs = [fused_render(planes[b].permute(0, 2, 3, 1), proj[b], decoder_params,
                                  res=res, tile=tile) for b in range(Bp)]
@@ -292,7 +318,8 @@ class ImportanceRenderer:
         the decoder's {"rgb", "sigma"} (exact bilinear tri-plane lookup)."""
         if options.get("flip_z", False):
             coordinates = coordinates * torch.tensor([1.0, 1.0, -1.0], device=coordinates.device)
-        proj = project_onto_planes((2.0 / options["box_warp"]) * coordinates.float())
+        proj = project_onto_planes((2.0 / options["box_warp"]) * coordinates.float(),
+                                   self.picks)
         return decoder(_sample(planes.float(), proj))
 
     def _march_fused_path(self, planes, decoder_params, ray_origins, ray_directions,
@@ -323,7 +350,7 @@ class ImportanceRenderer:
             planes_b = planes[b].permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
             coords_c = (ray_origins[b:b + 1, :, None, :]
                         + depths_coarse[b:b + 1] * ray_directions[b:b + 1, :, None, :])
-            proj_c = project_onto_planes(box * coords_c.reshape(1, -1, 3))
+            proj_c = project_onto_planes(box * coords_c.reshape(1, -1, 3), self.picks)
             proj_c = proj_c.reshape(n_planes, R, S, 2).contiguous()
             raw = fused_render(planes_b, proj_c, decoder_params, res=res, tile=tile,
                                return_raw=True)  # [T*S, P, O]
@@ -343,7 +370,7 @@ class ImportanceRenderer:
             is_fine = (order >= S).to(torch.int32)
             src = torch.where(order >= S, order - S, order).to(torch.int32)
             coords_m = ro_t[b][:, None, :, :] + d_m[:, :, None, None] * rd_t[b][:, None, :, :]
-            proj_m = project_onto_planes(box * coords_m.reshape(1, -1, 3))
+            proj_m = project_onto_planes(box * coords_m.reshape(1, -1, 3), self.picks)
             proj_m = proj_m.reshape(n_planes, T, S + n_imp, -1, 2).contiguous()
             rgb, dep, ws = fused_merged_march(planes_b, proj_m, is_fine, src, d_m, raw,
                                               decoder_params, res=res, S=S, tile=tile)

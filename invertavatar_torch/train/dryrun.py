@@ -9,11 +9,13 @@ rank takes its rows of a global batch of one item per rank and runs the step
 over the data mesh. The dry run asserts finite losses, the batch sharded by
 rank and the parameters bitwise equal across ranks after the update. The
 ranks are spawned processes joined through a `FileStore` in a temporary
-directory: over gloo on the CPU (`device="cpu"`), or with `device="cuda"`
-rank r on card r over NCCL when there are at least as many cards as ranks,
-and every rank on card 0 over gloo otherwise.
+directory: on CUDA (the default) rank r on card r over NCCL when there are
+at least as many cards as ranks, and every rank on card 0 over gloo
+otherwise; over gloo on the CPU with `device="cpu"`. Without CUDA the
+default raises.
 
     python -c "from invertavatar_torch.train.dryrun import run_dryrun; print(run_dryrun(2))"
+    python -c "from invertavatar_torch.train.dryrun import run_dryrun; print(run_dryrun(2, device='cpu'))"
 """
 
 from __future__ import annotations
@@ -179,7 +181,9 @@ def fewshot_dryrun_rank(mesh) -> Dict[str, float]:
 
 def _spawn(fn, n_ranks: int, device: str) -> list:
     from ..parallel.multihost import spawn_ranks
+    from ..utils.misc import resolve_device
 
+    device = str(resolve_device(device))
     backend = None
     if device.startswith("cuda") and torch.cuda.device_count() < n_ranks:
         device, backend = "cuda:0", "gloo"  # NCCL takes one rank per card
@@ -187,12 +191,12 @@ def _spawn(fn, n_ranks: int, device: str) -> list:
         return spawn_ranks(fn, n_ranks, run_dir, device=device, backend=backend)
 
 
-def run_dryrun(n_ranks: int, device: str = "cpu") -> list:
+def run_dryrun(n_ranks: int, device: str = "cuda") -> list:
     """One full GAN step on `n_ranks` spawned ranks; each rank's metrics."""
     return _spawn(gan_dryrun_rank, n_ranks, device)
 
 
-def run_dryrun_inversion(n_ranks: int, device: str = "cpu") -> list:
+def run_dryrun_inversion(n_ranks: int, device: str = "cuda") -> list:
     """One few-shot Ireal step on `n_ranks` spawned ranks; each rank's
     losses."""
     return _spawn(fewshot_dryrun_rank, n_ranks, device)

@@ -29,6 +29,11 @@ HWIO -> OIHW, the `lin.<i>.1` 1×1 heads) and the ArcFace backbone (the IR-SE
 trunk, `output_layer.0` BatchNorm and `.4` BatchNorm1d statistics from
 `batch_stats`, the `output_layer.3` linear [in, out] -> [out, in]).
 
+The style-U-Net trees (`encoder.{i}.fromrgb`, `fusion.{i}`, `b{res}.conv0`,
+the GRU gates `b{res}.gru.ih.0` / `.hh.0`, the SFT heads) and the Next3D
+generators' (`mouth_backbone` / `neural_blending` encoders and fusion convs,
+the used `b{res}` blocks) are 4-D convs and FCs: the rules above cover them.
+
 The StyleGAN3 input (`...input.weight`, a [C, C] matrix the JAX package
 already applies as `x @ weight.T`) keeps its layout, and its `input.affine`
 bias gains the reference's [1, 0, 0, 0] start, which JAX adds after a zero
