@@ -26,10 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      bf16 planes) and backward timed as the library yardstick, the
      transpose's zero fill beside it, and the channels-last copy of the
      planes; the transpose also at the worst contention (every coarse point
-     on one 2x2 texel patch). With `--earlier-src PATH` (repeatable), the
-     transpose kernel of another `plane_sample.cu` with the same C interface
-     (an earlier commit's, say, written under build/) is built by nvcc and
-     checked and timed on the same grids, between two timings of the port's
+     on one 2x2 texel patch). With `--earlier-src PATH` (repeatable), both
+     kernels of another `plane_sample.cu` (an earlier commit's, say, written
+     under build/) are built by nvcc and checked and timed on the same
+     grids, between two timings of the port's; its forward also on
+     tile-major points and with streaming stores, beside a store-only kernel
+     and the port's forward with every point on one texel patch
+     (`b3_forward_diagnosis`, here and in 27c)
   9. a small-config e4e training step on the card against the same step on
      the CPU: losses and encoder gradients
  10. the e4e training path: the float32 flagship generator (frozen) with an
@@ -219,6 +222,8 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from pathlib import Path
 
 T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -579,21 +584,34 @@ def transpose_check(torch, ps, label, grid, cot, planes_shape, transpose=None, t
     return e.max().item()
 
 
-def earlier_transposes(torch, ps, paths):
-    """{path: transpose(grid, cot, planes_shape)} launching the transpose
-    kernel of each earlier `plane_sample.cu`, built by nvcc into build/."""
+def earlier_kernels(torch, ps, paths):
+    """{path: (transpose(grid, cot, planes_shape), forward(planes, grid, dt),
+    forward with streaming stores or None)} launching the kernels of each
+    earlier `plane_sample.cu` with the port's C interface, built by nvcc into
+    build/; the streaming-store forward (`b3_forward_diagnosis`'s (d)) is the
+    source with its forward's plain store replaced by `__stcs`, where that
+    store is found."""
     import ctypes
 
     from invertavatar_torch.utils import cuda_build
 
+    plain_store = "out[point * vecs + lane] = pack(acc);"
     out = {}
     for i, path in enumerate(paths):
-        lib = ctypes.CDLL(str(cuda_build.build(f"earlier{i}_plane_sample", path)))
-        lib.plane_sample_transpose_launch.argtypes = \
-            ps._lib().plane_sample_transpose_launch.argtypes
-        lib.plane_sample_transpose_launch.restype = ctypes.c_int
+        text = Path(path).read_text()
+        libs = [ctypes.CDLL(str(cuda_build.build(f"earlier{i}_plane_sample", path)))]
+        if plain_store in text:
+            stcs = Path(cuda_build.BUILD_DIR) / f"earlier{i}_stcs_plane_sample.cu"
+            stcs.write_text(text.replace(plain_store,
+                                         "__stcs(out + point * vecs + lane, pack(acc));"))
+            libs.append(ctypes.CDLL(str(cuda_build.build(f"earlier{i}_stcs_plane_sample",
+                                                         stcs))))
+        for lib in libs:
+            for name in ("plane_sample_launch", "plane_sample_transpose_launch"):
+                getattr(lib, name).argtypes = getattr(ps._lib(), name).argtypes
+                getattr(lib, name).restype = ctypes.c_int
 
-        def transpose(grid, cot, planes_shape, lib=lib, path=path):
+        def transpose(grid, cot, planes_shape, lib=libs[0], path=path):
             grid, cot = grid.contiguous(), cot.contiguous()
             d = torch.zeros(planes_shape, device=grid.device)
             rc = lib.plane_sample_transpose_launch(
@@ -603,7 +621,19 @@ def earlier_transposes(torch, ps, paths):
                 fail(f"the transpose of {path} did not launch: CUDA error {rc}")
             return d
 
-        out[path] = transpose
+        def forward(planes, grid, dt, lib=libs[0], path=path):
+            planes, grid = planes.to(dt).contiguous(), grid.contiguous()
+            o = torch.empty((*grid.shape[:-1], planes.shape[-1]), device=grid.device, dtype=dt)
+            rc = lib.plane_sample_launch(
+                planes.data_ptr(), grid.data_ptr(), o.data_ptr(), *planes.shape,
+                grid[0].numel() // 2, int(dt == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"the forward of {path} did not launch: CUDA error {rc}")
+            return o
+
+        out[path] = (transpose, forward,
+                     partial(forward, lib=libs[1]) if len(libs) > 1 else None)
     return out
 
 
@@ -611,13 +641,66 @@ def time_earlier(torch, ps, card, earlier, label, grid, cot, planes_shape):
     """Check and time each earlier transpose, then the port's kernel again."""
     if not earlier:
         return
-    for path, transpose in earlier.items():
+    for path, (transpose, *_) in earlier.items():
         transpose_check(torch, ps, f"{label} ({path})", grid, cot, planes_shape, transpose)
         ms = device_ms(lambda: transpose(grid, cot, planes_shape), "transpose_kernel(")
         print(f"[8] B3 transpose {label} kernel of {path}: {ms:.4f} ms on {card}")
     ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes_shape),
                    "transpose_kernel(")
     print(f"[8] B3 transpose {label} kernel, again after those: {ms:.4f} ms on {card}")
+
+
+def b3_forward_diagnosis(torch, ps, card, tag, label, planes, grid, dt, earlier):
+    """With `--earlier-src`: what binds B3's forward on one recorded grid, by
+    timing (a) each earlier forward, (b) it on the same points permuted to
+    8x8-ray-tile-major order (stratum-major within a tile; its output
+    permuted back and compared), (c) a store-only kernel writing the same
+    output bytes (`zero_`), (d) the earlier forward with streaming stores;
+    then (e) the port's forward with every point on one 2x2 texel patch (its
+    taps hit the L1), and the port's again."""
+    if not earlier:
+        return
+    name = str(dt)[6:]
+    own = ps.sample_planes_windowed(planes, grid, dt)
+
+    def timed(fn):
+        return device_ms(fn, "sample_kernel<")
+
+    def same(o, what):
+        e = (o.float() - own.float()).abs().max().item()
+        print(f"{tag} B3 {label} {name}: {what} against the port's forward: max diff {e:.3e}, "
+              f"bit-equal {torch.equal(o, own)}")
+        return e
+
+    rows = [("port's forward", timed(lambda: ps.sample_planes_windowed(planes, grid, dt)))]
+    N, C = planes.shape[0], planes.shape[-1]
+    res = round(grid.shape[1] ** 0.5) if grid.ndim == 4 else 0
+    res = res if res * res == grid.shape[1] and res % 8 == 0 else 0
+    for path, (_, forward, forward_cs) in earlier.items():
+        same(forward(planes, grid, dt), f"(a) the forward of {path}")
+        rows.append((f"(a) {path}", timed(lambda: forward(planes, grid, dt))))
+        if res:
+            S, t = grid.shape[2], res // 8
+            g_t = grid.reshape(N, t, 8, t, 8, S, 2).permute(0, 1, 3, 5, 2, 4, 6).reshape(N, -1, 2)
+            g_t = g_t.contiguous()
+            back = forward(planes, g_t, dt).reshape(N, t, t, S, 8, 8, C).permute(
+                0, 1, 4, 2, 5, 3, 6).reshape(own.shape)
+            same(back, f"(b) the forward of {path} on tile-major points, permuted back")
+            rows.append((f"(b) {path}, tile-major points", timed(lambda: forward(planes, g_t, dt))))
+        if forward_cs is not None:
+            same(forward_cs(planes, grid, dt), f"(d) the forward of {path} with __stcs")
+            rows.append((f"(d) {path} with __stcs", timed(lambda: forward_cs(planes, grid, dt))))
+    buf = torch.empty_like(own)
+    rows.append(("(c) store-only (zero_ of the output)", device_ms(lambda: buf.zero_())))
+    H = planes.shape[1]
+    patch = (torch.tensor([100.5, 120.5], device=grid.device) + 0.5) / (H * 0.5) - 1.0
+    g = patch + grid * 0
+    rows.append(("(e) every point on one 2x2 texel patch",
+                 timed(lambda: ps.sample_planes_windowed(planes, g, dt))))
+    rows.append(("port's forward, again",
+                 timed(lambda: ps.sample_planes_windowed(planes, grid, dt))))
+    print(f"{tag} B3 {label} {name} diagnosis on {card}: " +
+          "; ".join(f"{what} {ms:.4f} ms" for what, ms in rows))
 
 
 def e4e_weights():
@@ -659,8 +742,9 @@ def e4e_states(torch, net):
             TrainState(wd, torch.optim.Adam(wd.parameters(), lr=2e-5)))
 
 
-def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
-    """Phases 7-10; returns the kernel records of B3 and its transpose."""
+def e4e_phases(torch, dev, card, ps, rmod, earlier=None):
+    """Phases 7-10 (`earlier`: `earlier_kernels`' kernels, or None); returns
+    the kernel records of B3 and its transpose."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -682,7 +766,6 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
     # ---------------------------------------------------------------- phase 7
     cuda_build.load("plane_sample")
     print_build("[7]", "plane_sample")
-    earlier = earlier_transposes(torch, ps, earlier_src)
 
     # ---------------------------------------------------------------- phase 8
     mark("8")
@@ -742,6 +825,9 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier_src=()):
                   f"planes {bf_lib:.4f} ms, bound {bf_bound:.4f} ms ({bf_by}; "
                   f"{bf_bytes / 1e6:.1f} MB) on {card}")
             del planes_bf, grid_bf
+            for dt in (torch.float32, torch.bfloat16):
+                b3_forward_diagnosis(torch, ps, card, "[8]", f"{label} S={S}", planes, grid, dt,
+                                     earlier)
             # backward: the transpose, against its plain version and grid_sample's backward
             cot = torch.randn((N, R, S, C), device=dev)
             e = transpose_check(torch, ps, f"{label} S={S}", grid, cot, planes.shape)
@@ -3612,7 +3698,7 @@ def _payload(torch, call):
     return args[2] if len(args) > 2 else kw.get("payload_dtype", torch.float32)
 
 
-def b3_record(torch, ps, card, tag, label, call):
+def b3_record(torch, ps, card, tag, label, call, earlier=None):
     """B3 on one recorded Next3D render call (planes, grid, payload dtype):
     both payloads against the plain version, the call's own payload timed
     with its plain version and `F.grid_sample` on planes of that dtype;
@@ -3633,6 +3719,7 @@ def b3_record(torch, ps, card, tag, label, call):
     grid_l = grid.to(dt)
     lib = device_ms(lambda: F.grid_sample(planes_nchw, grid_l, mode="bilinear",
                                           padding_mode="zeros", align_corners=False))
+    b3_forward_diagnosis(torch, ps, card, tag, label, planes, grid, dt, earlier)
     print(f"{tag} B3 {label} {str(dt)[6:]} payload: planes {tuple(planes.shape)}, grid "
           f"{tuple(grid.shape)}; kernel {ms:.4f} ms, plain {plain:.4f} ms, F.grid_sample on "
           f"{str(dt)[6:]} planes {lib:.4f} ms, bound {b:.4f} ms ({by}; {nbytes / 1e6:.1f} MB) on "
@@ -3643,7 +3730,7 @@ def b3_record(torch, ps, card, tag, label, call):
                 library_ms=lib)
 
 
-def next3d_phases(torch, dev, card, ps, rmod):
+def next3d_phases(torch, dev, card, ps, rmod, earlier=None):
     """Phases 27b-27c: the Next3D generator small on the card against the CPU
     on three routes, then at full width; the legacy generator at full
     width. Returns the kernel records of B3's Next3D routes and each
@@ -3723,7 +3810,8 @@ def next3d_phases(torch, dev, card, ps, rmod):
     if len(calls) != 1:
         fail(f"[27c] a frame made {len(calls)} B3 calls, expected 1 (the coarse pass)")
     records = {"next3d_plane_sample_bf16": b3_record(torch, ps, card, "[27c]",
-                                                     "full-width Next3D coarse pass", calls[0])}
+                                                     "full-width Next3D coarse pass", calls[0],
+                                                     earlier)}
     del calls
     out_e = _route_frame(torch, G, rk_e, ws, c, v, rmod)
     _bands("[27c]", "the kernel route (pallas_coarse, bf16 B3) against the exact route",
@@ -3732,7 +3820,7 @@ def next3d_phases(torch, dev, card, ps, rmod):
     out_x = _route_frame(torch, G, dict(rk_k, pallas_exact=True), ws, c, v, rmod, calls)
     _bands("[27c]", "the pallas_exact route (float32 B3) against the exact route", out_x, out_e)
     records["next3d_plane_sample_fp32"] = b3_record(
-        torch, ps, card, "[27c]", "full-width Next3D coarse pass", calls[0])
+        torch, ps, card, "[27c]", "full-width Next3D coarse pass", calls[0], earlier)
     del calls, out_e, out_x
 
     launches = {}
@@ -3811,8 +3899,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--earlier-src", action="append", default=[], metavar="PATH",
-                    help="a plane_sample.cu with the port's C interface whose transpose "
-                         "kernel phase 8 checks and times beside the port's")
+                    help="a plane_sample.cu with the port's C interface whose kernels "
+                         "phases 8 and 27c check and time beside the port's")
     args = ap.parse_args(argv)
     import torch
 
@@ -3946,7 +4034,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     mark("7")
-    kernels += e4e_phases(torch, dev, card, ps, rmod, args.earlier_src)
+    earlier = earlier_kernels(torch, ps, args.earlier_src)
+    kernels += e4e_phases(torch, dev, card, ps, rmod, earlier)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phases 11-13
@@ -4006,7 +4095,7 @@ def main(argv=None):
     # ---------------------------------------------------------------- phase 27
     mark("27a")
     styleunet_phase(torch, dev, card)
-    n3d_records, n3d_launches = next3d_phases(torch, dev, card, ps, rmod)
+    n3d_records, n3d_launches = next3d_phases(torch, dev, card, ps, rmod, earlier)
     mark("end")
     cond_checks = {r["name"]: r for r in cond_checks}
     for k in kernels:

@@ -18,7 +18,9 @@ The TPU formulation cuts the points into (tile, stratum) blocks and drops
 taps outside a per-block window, because TPU gathers are slow. The CUDA
 kernels (`csrc/plane_sample.cu`) gather each point's taps directly, so they
 need no window and are exact where a footprint overflows one. The window is
-still computed (`coarse_window_for`), because the renderer routes on it.
+still computed (`coarse_window_for`), because the renderer routes on it. A
+point with a NaN or infinite coordinate samples NaN in the forward, as in
+JAX; the transpose gives it no taps.
 
 Each wrapper runs its plain PyTorch version (`*_reference`, same module) when
 its tensors lie on the CPU and launches the kernel when they lie on a CUDA
@@ -176,6 +178,7 @@ def sample_planes_windowed(planes: torch.Tensor, grid: torch.Tensor,
     _check(planes.device.type == "cuda" and grid.device == planes.device,
            f"expected CUDA tensors on one device, got {planes.device} and {grid.device}")
     _check(grid.dtype == torch.float32, "grid must be float32")
+    _check(planes.shape[0] <= 65535, "at most 65535 planes per launch")
     N, H, W, C = planes.shape
     payload = _aligned(planes.detach().to(payload_dtype))
     grid = _aligned(grid.detach())

@@ -10,7 +10,12 @@ exact bilinear sample that the port computes.
 The cases of `_transpose_case` (one 2x2 patch, edges with NaN, ±inf and
 ±1e9, points all over a large plane, a ray count that is not a square, C = 8
 and 32) run through the plain transpose here, against a numpy `np.add.at`
-transpose, and through the kernel on a CUDA device.
+transpose, and through the kernel on a CUDA device. The cases of
+`_sample_case` (a coarse grid, importance-like strata spread across the
+plane, rays out of raster order, the plane's edges, ±1e9, NaN and ±inf, a
+ray count that is not a square) run through the forward's plain version
+here, against numpy and the JAX package, and through the kernel on a CUDA
+device.
 
 JAX is imported inside the tests that use it, so that the CUDA tests also run
 on a machine without JAX:
@@ -254,3 +259,144 @@ def test_cuda_transpose_cases(case):
     torch.cuda.synchronize()
     assert ps.windowed_sample_transpose.launches == launches + 1
     _assert_transpose_close(out, grid, cot, shape)
+
+
+# ---------------------------------------------------------- the forward's cases
+
+SAMPLE_CASES = ["coarse", "importance", "not_raster", "edges", "huge", "non_finite",
+                "rays_not_square"]
+PAYLOADS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _sample_case(name, rng):
+    """(planes, grid) of one forward case, at test size: float32 planes
+    `[N, H, H, C]` and a float32 grid `[N, R, S, 2]`."""
+    n, h, c, res, s = N, H, C, RES, S
+    grid = _structured_grid(rng, n, res, s)
+    if name == "importance":  # sorted strata along a line: near a surface or across the plane
+        c = 32
+        t = np.sort(rng.uniform(-1, 1, (n, res * res, s, 1)), axis=2)
+        t = t * np.where(grid[:, :, :1, :1] < 0, 0.02, 1.0)
+        grid = (grid[:, :, :1] * 0.3 + t * np.array([0.9, 0.6])).astype(np.float32)
+    elif name == "not_raster":  # the rays in a random order
+        grid = grid[:, rng.permutation(res * res)]
+    elif name == "edges":  # on, just inside and just outside the plane's edges
+        edge = np.array([-1 - 1 / h, -1, -1 + 0.5 / h, -1 + 1 / h, 0, 1 - 1 / h, 1 - 0.5 / h,
+                         1, 1 + 1 / h], np.float32)
+        grid = np.where(rng.rand(*grid.shape) < 0.5, rng.choice(edge, grid.shape),
+                        rng.uniform(-1.05, 1.05, grid.shape)).astype(np.float32)
+    elif name in ("huge", "non_finite"):
+        values = (1e9, -1e9) if name == "huge" else (np.nan, np.inf, -np.inf)
+        flat = grid.reshape(-1)
+        for v in values:
+            flat[rng.choice(flat.size, 200, replace=False)] = v
+    elif name == "rays_not_square":
+        grid = grid[:, :1000]
+    planes = rng.randn(n, h, h, c).astype(np.float32)
+    return torch.from_numpy(planes), torch.from_numpy(np.ascontiguousarray(grid))
+
+
+def _numpy_sample(planes, grid):
+    """Bilinear samples in float64 with the plain version's float32 tap
+    weights; NaN for a point with a non-finite coordinate; and Σw|v|."""
+    n, h, w, c = planes.shape
+    g = grid.reshape(n, -1, 2)
+    one, half = np.float32(1), np.float32(0.5)
+    with np.errstate(invalid="ignore", over="ignore"):
+        gx = (g[..., 0] + one) * np.float32(w * 0.5) - half
+        gy = (g[..., 1] + one) * np.float32(h * 0.5) - half
+        x0f, y0f = np.floor(gx), np.floor(gy)
+        wx, wy = gx - x0f, gy - y0f
+    out = np.zeros(g.shape[:2] + (c,))
+    mag = np.zeros_like(out)
+    plane = np.broadcast_to(np.arange(n)[:, None], gx.shape)
+    for dy, dx, wt in ((0, 0, (one - wx) * (one - wy)), (0, 1, wx * (one - wy)),
+                       (1, 0, (one - wx) * wy), (1, 1, wx * wy)):
+        y, x = y0f + dy, x0f + dx
+        ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        v = np.zeros(out.shape)
+        v[ok] = planes[plane[ok], y[ok].astype(np.int64), x[ok].astype(np.int64)]
+        out += wt[..., None].astype(np.float64) * v
+        mag += np.abs(wt[..., None].astype(np.float64) * v)
+    bad = ~(np.isfinite(gx) & np.isfinite(gy))
+    out[bad] = np.nan
+    return out.reshape(grid.shape[:-1] + (c,)), mag.reshape(grid.shape[:-1] + (c,))
+
+
+def _assert_samples_close(out, ref, mag, rel, what):
+    """|out - ref| <= rel·|ref| + 2e-6·Σw|v| + 1e-7 where ref is finite, and
+    NaN exactly where ref is NaN."""
+    out = np.asarray(out, np.float64)
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(out), nan), (what, int(np.isnan(out).sum()), int(nan.sum()))
+    err = np.abs(out - ref)[~nan]
+    tol = (rel * np.abs(ref) + 2e-6 * mag + 1e-7)[~nan]
+    assert (err <= tol).all(), (what, err.max(), int((err > tol).sum()))
+
+
+@pytest.mark.parametrize("payload", list(PAYLOADS))
+@pytest.mark.parametrize("case", SAMPLE_CASES)
+def test_sample_cases_match_plain(case, payload):
+    """The forward's CPU route (its plain version) on each case against
+    `bilinear_sample_reference`, a float64 numpy sample, and the JAX
+    package: `ops/grid_sample.py` on every case, and the Pallas kernel in
+    interpret mode on the coarse grid, the one whose footprints fit its
+    window. NaN where a coordinate is NaN or ±inf; no launch."""
+    import jax
+    import jax.numpy as jnp
+
+    from invertavatar_tpu.ops.grid_sample import grid_sample
+    from invertavatar_tpu.ops.pallas_plane_sample import sample_planes_windowed_pallas
+
+    dt = PAYLOADS[payload]
+    planes, grid = _sample_case(case, np.random.RandomState(11))
+    launches = ps.sample_planes_windowed.launches
+    out = ps.sample_planes_windowed(planes, grid, dt)
+    assert ps.sample_planes_windowed.launches == launches
+    assert out.dtype == dt and out.shape == (*grid.shape[:-1], planes.shape[-1])
+    ref = ps.bilinear_sample_reference(planes.to(dt), grid.reshape(grid.shape[0], -1, 2))
+    torch.testing.assert_close(out, ref.reshape(out.shape).to(dt), rtol=0, atol=0,
+                               equal_nan=True)
+    rel = 0.0 if dt == torch.float32 else 2.0 ** -7  # bf16: one ulp of the output
+    p = planes.to(dt).float().numpy()
+    ref, mag = _numpy_sample(p, grid.numpy())
+    _assert_samples_close(out.float().numpy(), ref, mag, rel, "numpy")
+    jdt = jnp.float32 if dt == torch.float32 else jnp.bfloat16
+    j = jax.jit(grid_sample)(jnp.asarray(planes.numpy(), jdt), jnp.asarray(grid.numpy()))
+    _assert_samples_close(out.float().numpy(), np.asarray(j, np.float64), mag, rel,
+                          "JAX grid_sample")
+    if case == "coarse":  # the TPU kernel's band, as in test_sample_matches_pallas_interpret
+        j = jax.jit(lambda q, g: sample_planes_windowed_pallas(
+            q, g, res=RES, tile=TILE, window=WINDOW, payload_dtype=jdt,
+            exact=dt == torch.float32, interpret=True))(jnp.asarray(planes.numpy()),
+                                                        jnp.asarray(grid.numpy()))
+        err = np.abs(out.float().numpy() - np.asarray(j, np.float32))
+        assert err.max() < (1e-5 if dt == torch.float32 else 2e-2), err.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", list(PAYLOADS))
+@pytest.mark.parametrize("case", SAMPLE_CASES)
+def test_cuda_sample_cases(case, payload):
+    """The forward kernel on the card on each case against its plain
+    version: |k - p| <= rel·|p| + 2e-6·Σw|v| (fused multiply-adds; bf16: one
+    ulp of the output), NaN exactly where the plain version's; one launch
+    per call; the same bits from a second launch. C = 8 runs the bf16
+    payload's one-vector-a-thread route, C = 32 (the importance case) the
+    two-vector one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = PAYLOADS[payload]
+    planes, grid = _sample_case(case, np.random.RandomState(11))
+    planes_d, grid_d = planes.cuda(), grid.cuda()
+    launches = ps.sample_planes_windowed.launches
+    out = ps.sample_planes_windowed(planes_d, grid_d, dt)
+    torch.cuda.synchronize()
+    assert ps.sample_planes_windowed.launches == launches + 1
+    assert out.dtype == dt and out.shape == (*grid.shape[:-1], planes.shape[-1])
+    p = ps.sample_planes_windowed_reference(planes, grid, dt).float().numpy()
+    mag = ps.sample_planes_windowed_reference(planes.abs(), grid).numpy()
+    rel = 0.0 if dt == torch.float32 else 2.0 ** -7
+    _assert_samples_close(out.float().cpu().numpy(), p.astype(np.float64), mag, rel, "kernel")
+    again = ps.sample_planes_windowed(planes_d, grid_d, dt)
+    torch.testing.assert_close(again, out, rtol=0, atol=0, equal_nan=True)
