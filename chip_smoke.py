@@ -209,6 +209,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the kernel routes against the exact route within phase 5's bands, warm
      frames timed with the peak memory, B3 once per frame and B1/B2 never;
      then one `LegacyTriPlaneGenerator` at the same width: finite, timed
+ 28. non-finite coordinates and shape checks: B3 (both payloads) on grids
+     with NaN, ±inf (1/120 of the coordinates each) or ±1e9, and its
+     transpose on points straddling the plane's edges with NaN, ±inf and
+     ±1e9, at the tests' shapes and at the e4e coarse shapes, against their
+     plain versions on the card: NaN exactly where the plain version has it
+     (a NaN point's samples; texels (0..1, 0..1) of its plane in the
+     transpose), 0 at ±inf, finite entries within phase 8's tolerances, and
+     the counts of NaN points, ±inf points and NaN texels; a
+     `SynthesisNetwork` fed one ws too many and a `DiscriminatorEpilogue`
+     fed a [B, 1] cmap must each raise `AssertionError`; B3 and the
+     transpose re-timed on the grids recorded in phases 8 and 27c
 Kernel times are each kernel's own device time (torch.profiler); plain
 versions and library calls are timed by the device time of all their ops.
 The last lines are the kernels' JSON record, the card's name and power limit,
@@ -326,6 +337,9 @@ N3D_FULL_RK = dict(N3D_SMALL_RK, image_resolution=512,
                    depth_resolution_importance=48, pallas_coarse=True)
 N3D_FULL_SPHERE = (49, 104)  # 5,096 vertices, 9,984 faces (FLAME: 5,023 and 9,976)
 N3D_FRAMES, N3D_EXACT_FRAMES = 10, 3  # timed 27c frames on the bf16 and fp32 B3 routes
+# phase 28's non-finite grids: (planes, H = W, C, rays a side, samples a ray)
+NON_FINITE_SHAPES = {"test shapes": (3, 64, 8, 32, 4),
+                     "e4e coarse shapes": (3, 256, 32, 128, 40)}
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, TF32 on
 # the tensor cores, HBM3 rate
@@ -399,6 +413,9 @@ def device_ms(fn, kernel=None, n=N_TIMED, warmup=3, tries=3):
 
 
 CU_SOURCES = ("fused_render", "plane_sample")
+# B3's inputs recorded in phases 8 and 27c, re-timed in phase 28:
+# label -> (planes, grid, payload dtypes)
+RECORDED_GRIDS = {}
 
 
 def print_build(tag, name):
@@ -799,6 +816,8 @@ def e4e_phases(torch, dev, card, ps, rmod, earlier=None):
               f"({planes_nc.numel() * 8 / 1e6:.1f} MB moved) on {card}")
         for (args, _, out), label in zip(calls, ("coarse", "fine")):
             planes, grid = args
+            RECORDED_GRIDS[f"[8] e4e student {label}"] = (planes, grid, (torch.float32,
+                                                                         torch.bfloat16))
             N, H, W, C = planes.shape
             R, S = grid.shape[1], grid.shape[2]
             n_pts = N * R * S
@@ -3707,6 +3726,7 @@ def b3_record(torch, ps, card, tag, label, call, earlier=None):
 
     (planes, grid, *_), _, out = call
     dt = _payload(torch, call)
+    RECORDED_GRIDS[f"{tag} {label} ({str(dt)[6:]} route)"] = (planes, grid, (dt,))
     errs = b3_forward_check(torch, ps, tag, label, planes, grid, out)
     N, H, W, C = planes.shape
     n_pts = N * grid.shape[1] * grid.shape[2]
@@ -3892,6 +3912,141 @@ def next3d_phases(torch, dev, card, ps, rmod, earlier=None):
     records["next3d_plane_sample_fp32"]["small_max_abs_err"] = small_errs["pallas_exact"]
     print(f"[27c] took {time.perf_counter() - t0:.1f} s")
     return records, launches
+
+
+# ---------------------------------------------------------------- phase 28
+
+
+def structured_grid(rng, n, res, s, spread=0.08, scale=1.1):
+    """A tile-coherent [n, res², s, 2] grid like the coarse pass's (the
+    draws of tests/test_torch_plane_sample.py's `_structured_grid`)."""
+    import numpy as np
+
+    ys, xs = np.mgrid[0:res, 0:res].astype(np.float32) / res
+    base = np.stack([xs * 2 - 1, ys * 2 - 1], -1).reshape(res * res, 2)
+    offs = (rng.rand(res * res, s, 2) - 0.5) * spread
+    grid = np.clip(base[:, None, :] * scale + offs, -1.15, 1.15).astype(np.float32)
+    return np.broadcast_to(grid[None], (n, res * res, s, 2)).copy()
+
+
+def with_values(rng, grid, values, share):
+    """`grid` with `share` of its coordinates set to each of `values`."""
+    grid = grid.copy()
+    flat = grid.reshape(-1)
+    for v in values:
+        flat[rng.choice(flat.size, max(1, int(flat.size * share)), replace=False)] = v
+    return grid
+
+
+def nan_pattern_check(torch, tag, label, k, p, tol):
+    """`k` against `p`: NaN exactly where `p` is NaN, |k - p| <= tol
+    elsewhere; returns the largest finite difference."""
+    nan = torch.isnan(p)
+    if not torch.equal(torch.isnan(k), nan):
+        fail(f"{tag} {label}: NaN on {int(torch.isnan(k).sum())} entries, the plain version "
+             f"on {int(nan.sum())}")
+    e = torch.where(nan, 0.0, (k - p).abs())
+    bad = int((e > torch.where(nan, 0.0, tol)).sum())
+    print(f"{tag} {label}: NaN pattern equal ({int(nan.sum())} NaN entries); finite max|k-p| "
+          f"{e.max().item():.3e}, violations {bad}")
+    if bad:
+        fail(f"{tag} {label}: the kernel disagrees with its plain version")
+    return e.max().item()
+
+
+def non_finite_phase(torch, dev, card, ps):
+    """Phase 28: B3 (both payloads) and its transpose on non-finite grids
+    against their plain versions, two of the shape checks on the card, and
+    B3 and the transpose re-timed on the grids recorded in phases 8 and 27c.
+    Returns {kernel: largest finite difference on the non-finite grids}."""
+    import numpy as np
+
+    from invertavatar_torch.models.discriminator import DiscriminatorEpilogue
+    from invertavatar_torch.models.synthesis import SynthesisNetwork
+
+    t0 = time.perf_counter()
+    nan, inf = float("nan"), float("inf")
+    errs = {"plane_sample": 0.0, "plane_sample_transpose": 0.0}
+    for label, (n, h, c, res, s) in NON_FINITE_SHAPES.items():
+        rng = np.random.RandomState(28)
+        planes = torch.from_numpy(rng.randn(n, h, h, c).astype(np.float32)).to(dev)
+        base = structured_grid(rng, n, res, s)
+        for case, values in (("non_finite", (nan, inf, -inf)), ("huge", (1e9, -1e9))):
+            grid = torch.from_numpy(with_values(rng, base, values, 1 / 120)).to(dev)
+            nan_pts = torch.isnan(grid).any(-1)
+            inf_pts = torch.isinf(grid).any(-1) & ~nan_pts
+            m = ps.sample_planes_windowed_reference(planes.abs(), grid)
+            for dt, rel in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
+                k = ps.sample_planes_windowed(planes, grid, dt).float()
+                p = ps.sample_planes_windowed_reference(planes, grid, dt).float()
+                what = f"B3 {case} {str(dt)[6:]} at the {label}"
+                errs["plane_sample"] = max(errs["plane_sample"], nan_pattern_check(
+                    torch, "[28]", what, k, p, p.abs() * rel + 2e-6 * m))
+                if not (torch.isnan(k[nan_pts]).all() and (k[inf_pts] == 0).all()):
+                    fail(f"[28] {what}: not NaN at every NaN point and 0 at every ±inf point")
+            print(f"[28] B3 {case} at the {label} (planes {tuple(planes.shape)}, grid "
+                  f"{tuple(grid.shape)}): {int(nan_pts.sum())} NaN points, "
+                  f"{int(inf_pts.sum())} ±inf points")
+        # the transpose's edges_nan case: points straddling the plane's
+        # edges, and 300 coordinates each of NaN, ±inf and ±1e9 at the test
+        # shapes (the same share at the e4e shapes)
+        grid = with_values(rng, rng.uniform(-1.05, 1.05, base.shape).astype(np.float32),
+                           (nan, inf, -inf, 1e9, -1e9), 300 / (3 * 32 * 32 * 4 * 2))
+        grid = torch.from_numpy(grid).to(dev)
+        cot = torch.from_numpy(rng.randn(n, res * res, s, c).astype(np.float32)).to(dev)
+        k = ps.windowed_sample_transpose(grid, cot, planes.shape)
+        p = ps.windowed_sample_transpose_reference(grid, cot, planes.shape)
+        m = ps.windowed_sample_transpose_reference(grid, cot.abs(), planes.shape)
+        what = f"B3 transpose edges_nan at the {label}"
+        errs["plane_sample_transpose"] = max(errs["plane_sample_transpose"], nan_pattern_check(
+            torch, "[28]", what, k, p, 1e-5 * m + 1e-7))
+        nan_pts = torch.isnan(grid).any(-1)
+        nan_planes = nan_pts.flatten(1).any(1)
+        nan_texels = torch.isnan(k).any(-1)
+        corner = torch.zeros_like(nan_texels)
+        corner[nan_planes, :2, :2] = True
+        if not torch.equal(nan_texels, corner):
+            fail(f"[28] {what}: NaN on {int(nan_texels.sum())} texels, not texels (0..1, 0..1) "
+                 f"of the {int(nan_planes.sum())} planes with a NaN point")
+        print(f"[28] {what} (grid {tuple(grid.shape)}): {int(nan_pts.sum())} NaN points, "
+              f"{int((torch.isinf(grid).any(-1) & ~nan_pts).sum())} ±inf points, "
+              f"{int(nan_texels.sum())} NaN texels")
+        del planes, grid, cot, k, p, m
+
+    def expect_assertion(label, call):
+        try:
+            call()
+        except AssertionError as e:
+            print(f"[28] {label}: AssertionError: {e}")
+            return
+        fail(f"[28] {label} raised no AssertionError")
+
+    with torch.no_grad():
+        net = SynthesisNetwork(w_dim=64, img_resolution=32, img_channels=3, channel_base=256,
+                               channel_max=32, num_fp16_res=0).to(dev)
+        ws = torch.zeros((2, net.num_ws + 1, 64), device=dev)
+        expect_assertion(f"SynthesisNetwork fed {net.num_ws + 1} ws for {net.num_ws}",
+                         lambda: net(ws, noise_mode="const"))
+        epi = DiscriminatorEpilogue(16, cmap_dim=8, resolution=4).to(dev)
+        x, cmap = torch.zeros((2, 16, 4, 4), device=dev), torch.zeros((2, 1), device=dev)
+        expect_assertion("DiscriminatorEpilogue fed a [2, 1] cmap for cmap_dim 8",
+                         lambda: epi(x, None, cmap))
+        del net, epi
+
+    for label, (planes, grid, payloads) in RECORDED_GRIDS.items():
+        for dt in payloads:
+            ms = device_ms(lambda: ps.sample_planes_windowed(planes, grid, dt), "sample_kernel<")
+            print(f"[28] B3 {label}, {str(dt)[6:]} payload again: kernel {ms:.4f} ms "
+                  f"(planes {tuple(planes.shape)}, grid {tuple(grid.shape)}) on {card}")
+        if label.startswith("[8]"):
+            cot = torch.randn((*grid.shape[:-1], planes.shape[-1]), device=dev)
+            ms = device_ms(lambda: ps.windowed_sample_transpose(grid, cot, planes.shape),
+                           "transpose_kernel(")
+            print(f"[28] B3 transpose {label} again: kernel {ms:.4f} ms on {card}")
+            del cot
+    RECORDED_GRIDS.clear()
+    print(f"[28] took {time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 def main(argv=None):
@@ -4096,10 +4251,17 @@ def main(argv=None):
     mark("27a")
     styleunet_phase(torch, dev, card)
     n3d_records, n3d_launches = next3d_phases(torch, dev, card, ps, rmod, earlier)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 28
+    mark("28")
+    non_finite_errs = non_finite_phase(torch, dev, card, ps)
     mark("end")
     cond_checks = {r["name"]: r for r in cond_checks}
     for k in kernels:
         name = k["name"]
+        if name in non_finite_errs:
+            k["non_finite_max_abs_err"] = non_finite_errs[name]
         later = {"preprocess": 0, "gan_metrics": metric_launches[name],
                  "projector": proj_launches[name],
                  "dp_world1_gan": dp_launches["dp_world1_gan"][name],

@@ -11,11 +11,15 @@
 // points grid [N, M, 2] plane-space xy in [-1, 1] (align_corners=False).
 //   forward:  out[n, m, :] = sum over the four bilinear taps of w_tap * plane_n[tap, :],
 //             taps outside the plane are zero; float32 sums, output in the
-//             payload's dtype (float32 or bfloat16); NaN for a point with a
-//             NaN or infinite coordinate, as in the plain version.
+//             payload's dtype (float32 or bfloat16).
 //   backward: d_plane[n, tap, :] += w_tap * cot[n, m, :] for every point, as
 //             float32 atomics into a zeroed buffer (the sum order is not
-//             deterministic); a point with a non-finite coordinate adds nothing.
+//             deterministic).
+// Non-finite coordinates, as in the plain versions and in JAX's windowed
+// sampler where its window stays in place: a point with a NaN in x or y
+// samples NaN in every channel, and its transpose adds NaN * cot to texels
+// (0..1, 0..1) of its own plane, the texels its forward reads; a point with
+// +-inf in x or y (and no NaN) is off the plane: it samples 0 and adds nothing.
 // The TPU kernel builds tent matrices over a texel window per (ray tile,
 // stratum) block and contracts them on the MXU, because TPU gathers are slow;
 // it drops taps outside the window. Here each point gathers its own four taps,
@@ -74,10 +78,12 @@ inline int log2_exact(int v) {
 // The four bilinear taps of a point: flat texel index (-1 outside the plane)
 // and weight. The coordinate transform is rounded step by step (no fused
 // multiply-add) to match the plain version's float32 arithmetic. A point with
-// a NaN or infinite coordinate has NaN weights; with `nan_taps` its taps are
-// the plane's first 2x2 texels, so that its samples are NaN, else it has none.
-__device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, bool nan_taps,
-                                              int (&idx)[4], float (&w)[4]) {
+// a NaN coordinate (one compare on the coordinate) has NaN weights on the
+// plane's first 2x2 texels, so that its samples are NaN; a point with an
+// infinite coordinate, or one that would overflow int, has no taps.
+__device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, int (&idx)[4],
+                                              float (&w)[4]) {
+  const bool nan = p.x != p.x || p.y != p.y;
   const float gx = __fsub_rn(__fmul_rn(__fadd_rn(p.x, 1.0f), W * 0.5f), 0.5f);
   const float gy = __fsub_rn(__fmul_rn(__fadd_rn(p.y, 1.0f), H * 0.5f), 0.5f);
   const float x0f = floorf(gx), y0f = floorf(gy);
@@ -86,10 +92,9 @@ __device__ __forceinline__ void bilinear_taps(float2 p, int H, int W, bool nan_t
   w[1] = wx * (1.0f - wy);
   w[2] = (1.0f - wx) * wy;
   w[3] = wx * wy;
-  // coordinates far outside the plane (or not finite) would overflow int: no taps
+  // coordinates far outside the plane (or not finite) would overflow int
   const bool near = fabsf(x0f) < 1e8f && fabsf(y0f) < 1e8f;
-  const bool nan_w = nan_taps && !(wx == wx && wy == wy);
-  const int x0 = near ? (int)x0f : nan_w ? 0 : -2, y0 = near ? (int)y0f : nan_w ? 0 : -2;
+  const int x0 = near ? (int)x0f : nan ? 0 : -2, y0 = near ? (int)y0f : nan ? 0 : -2;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int y = y0 + (k >> 1), x = x0 + (k & 1);
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
     const int lane = (int)(t0 + k * kThreads - point[k] * tpp) * VPT;
     int idx[4];
     float w[4];
-    bilinear_taps(p[k], H, W, true, idx, w);
+    bilinear_taps(p[k], H, W, idx, w);
     float acc[VPT][VEC];
 #pragma unroll
     for (int u = 0; u < VPT; ++u)
@@ -211,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
 
   int idx[4];
   float w[4];
-  bilinear_taps(grid[point], H, W, false, idx, w);
+  bilinear_taps(grid[point], H, W, idx, w);
   const float4 g = cot[point * vecs + lane];
   float* plane = d_planes + n * H * W * C + lane * 4;
 #pragma unroll

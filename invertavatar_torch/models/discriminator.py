@@ -32,7 +32,7 @@ import torch.nn as nn
 from ..ops.resize import resize_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter
 from ..parallel.mesh import batch_rand, gather_rows, local_rows
-from ..utils.misc import resolve_device
+from ..utils.misc import assert_shape, resolve_device
 from .layers import Conv2dLayer, FullyConnectedLayer
 from .mapping import MappingNetwork
 
@@ -71,11 +71,10 @@ class DiscriminatorBlock(nn.Module):
         image in "skip", else None once `fromrgb` has read it."""
         dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else torch.float32
         if x is not None:
-            assert x.shape[1:] == (self.in_channels, self.resolution, self.resolution), x.shape
+            assert_shape(x, [None, self.in_channels, self.resolution, self.resolution])
             x = x.to(dtype)
         if self.in_channels == 0 or self.architecture == "skip":
-            assert img.shape[1:] == (self.img_channels, self.resolution, self.resolution), \
-                img.shape
+            assert_shape(img, [None, self.img_channels, self.resolution, self.resolution])
             img = img.to(dtype)
             y = self.fromrgb(img)
             x = x + y if x is not None else y
@@ -149,7 +148,7 @@ class DiscriminatorEpilogue(nn.Module):
 
     def forward(self, x: torch.Tensor, img: Optional[torch.Tensor],
                 cmap: Optional[torch.Tensor]) -> torch.Tensor:
-        assert x.shape[1:] == (self.in_channels, self.resolution, self.resolution), x.shape
+        assert_shape(x, [None, self.in_channels, self.resolution, self.resolution])
         x = x.float()
         if self.architecture == "skip":
             x = x + self.fromrgb(img.float())
@@ -157,6 +156,7 @@ class DiscriminatorEpilogue(nn.Module):
             x = self.mbstd(x)
         x = self.out(self.fc(self.conv(x).flatten(1)))
         if self.cmap_dim > 0:
+            assert_shape(cmap, [None, self.cmap_dim])
             x = (x * cmap).sum(dim=1, keepdim=True) * (1 / math.sqrt(self.cmap_dim))
         return x
 

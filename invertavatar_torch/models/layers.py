@@ -24,6 +24,7 @@ from ..ops.bias_act import bias_act, def_gain
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.upfirdn2d import setup_filter
 from ..parallel.mesh import batch_rand
+from ..utils.misc import assert_shape
 
 
 class FullyConnectedLayer(nn.Module):
@@ -96,6 +97,7 @@ def modulated_conv2d(
     flip_weight: bool = True,
 ) -> torch.Tensor:
     """Style-modulated conv: modulate activations, one shared conv, demodulate."""
+    assert_shape(styles, [x.shape[0], weight.shape[1]])
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
                         padding=padding, flip_weight=flip_weight)
@@ -136,7 +138,7 @@ class SynthesisLayer(nn.Module):
                 gain: float = 1.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         assert noise_mode in ("random", "const", "none")
         in_res = self.resolution // self.up
-        assert x.shape[1:] == (self.in_channels, in_res, in_res), x.shape
+        assert_shape(x, [None, self.in_channels, in_res, in_res])
         styles = self.affine(w.float())
 
         noise = None

@@ -43,7 +43,7 @@ from ..render.mouth import fill_mouth
 from ..render.rasterizer import interpolate_attributes, rasterize
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer
-from ..utils.misc import resolve_device
+from ..utils.misc import assert_shape, resolve_device
 from . import superresolution as sr_mod
 from .encoders.styleunet import EncoderResBlock
 from .layers import Conv2dLayer
@@ -114,7 +114,7 @@ class CondSynthesisNetwork(nn.Module):
 
     def forward(self, x_in: torch.Tensor, ws: torch.Tensor, noise_mode: str = "random",
                 force_fp32: bool = False, generator: Optional[torch.Generator] = None):
-        assert ws.shape[1:] == (self.num_ws, self.w_dim), ws.shape
+        assert_shape(ws, [None, self.num_ws, self.w_dim])
         ws = ws.float()
         conds, cond_out = [], None
         for block in self.encoder:

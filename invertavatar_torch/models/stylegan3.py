@@ -28,7 +28,7 @@ import torch.nn as nn
 
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.filtered_lrelu import filtered_lrelu
-from ..utils.misc import resolve_device
+from ..utils.misc import assert_shape, resolve_device
 from .layers import FullyConnectedLayer
 from .mapping import MappingNetwork
 
@@ -189,7 +189,7 @@ class SG3SynthesisLayer(nn.Module):
                            down=self.down_factor, padding=self.padding,
                            gain=1.0 if self.is_torgb else math.sqrt(2.0),
                            slope=1.0 if self.is_torgb else 0.2, clamp=self.conv_clamp)
-        assert x.shape[1:] == (self.out_channels, self.out_size, self.out_size), x.shape
+        assert_shape(x, [None, self.out_channels, self.out_size, self.out_size])
         return x
 
 
@@ -242,7 +242,7 @@ class SG3SynthesisNetwork(nn.Module):
             self.layer_names.append(name)
 
     def forward(self, ws: torch.Tensor, update_emas: bool = False) -> torch.Tensor:
-        assert ws.shape[1:] == (self.num_ws, self.w_dim), ws.shape
+        assert_shape(ws, [None, self.num_ws, self.w_dim])
         ws = ws.float()
         x = self.input(ws[:, 0])
         for i, name in enumerate(self.layer_names):

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..utils.misc import assert_shape
 from .layers import SynthesisLayer, ToRGBLayer
 from .mapping import MappingNetwork
 
@@ -33,6 +34,9 @@ class SynthesisBlock(nn.Module):
                  no_upsample: bool = False):
         super().__init__()
         self.in_channels = in_channels
+        self.w_dim = w_dim
+        self.resolution = resolution
+        self.img_channels = img_channels
         self.use_fp16 = use_fp16
         self.no_upsample = no_upsample
         self.register_buffer("resample_filter", setup_filter(resample_filter), persistent=False)
@@ -54,7 +58,7 @@ class SynthesisBlock(nn.Module):
     def forward(self, x, img, ws, condition: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 force_fp32: bool = False, noise_mode: str = "random",
                 generator: Optional[torch.Generator] = None):
-        assert ws.shape[1] == self.num_conv + self.num_torgb, ws.shape
+        assert_shape(ws, [None, self.num_conv + self.num_torgb, self.w_dim])
         dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else torch.float32
         w_iter = iter(ws.unbind(dim=1))
         layer_kw = dict(noise_mode=noise_mode, generator=generator)
@@ -63,6 +67,8 @@ class SynthesisBlock(nn.Module):
             x = self.const.to(dtype)[None].expand(ws.shape[0], -1, -1, -1)
             x = self.conv1(x, next(w_iter), **layer_kw)
         else:
+            in_res = self.resolution if self.no_upsample else self.resolution // 2
+            assert_shape(x, [None, self.in_channels, in_res, in_res])
             x = self.conv0(x.to(dtype), next(w_iter), **layer_kw)
             if condition is not None:
                 # CS-SFT: modulate the second half of the channels
@@ -73,6 +79,8 @@ class SynthesisBlock(nn.Module):
             x = self.conv1(x, next(w_iter), **layer_kw)
 
         if img is not None and not self.no_upsample:
+            in_res = self.resolution // 2
+            assert_shape(img, [None, self.img_channels, in_res, in_res])
             img = upsample2d(img, self.resample_filter)
 
         y = self.torgb(x, next(w_iter)).float()
@@ -112,7 +120,7 @@ class SynthesisNetwork(nn.Module):
                 feat_conditions: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None,
                 out_res: Tuple[int, ...] = (32, 256), noise_mode: str = "random",
                 force_fp32: bool = False, generator: Optional[torch.Generator] = None):
-        assert ws.shape[1:] == (self.num_ws, self.w_dim), ws.shape
+        assert_shape(ws, [None, self.num_ws, self.w_dim])
         ws = ws.float()
         log2 = int(np.log2(self.img_resolution))
 

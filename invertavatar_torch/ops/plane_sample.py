@@ -18,9 +18,15 @@ The TPU formulation cuts the points into (tile, stratum) blocks and drops
 taps outside a per-block window, because TPU gathers are slow. The CUDA
 kernels (`csrc/plane_sample.cu`) gather each point's taps directly, so they
 need no window and are exact where a footprint overflows one. The window is
-still computed (`coarse_window_for`), because the renderer routes on it. A
-point with a NaN or infinite coordinate samples NaN in the forward, as in
-JAX; the transpose gives it no taps.
+still computed (`coarse_window_for`), because the renderer routes on it.
+
+Non-finite coordinates, per point, in the plain versions and the kernels
+alike (JAX's windowed sampler and its transpose give the same, where their
+window stays in place):
+  * a NaN in x or y: NaN in every channel of its sample; its transpose adds
+    NaN·cot to texels (0..1, 0..1) of its own plane;
+  * ±inf in x or y (and no NaN), like any coordinate far off the plane: a
+    sample of 0, and nothing in the transpose.
 
 Each wrapper runs its plain PyTorch version (`*_reference`, same module) when
 its tensors lie on the CPU and launches the kernel when they lie on a CUDA
@@ -62,18 +68,27 @@ def coarse_window_rect(resolution: int, th: int, tw: int) -> Tuple[int, int]:
 def _taps(grid: torch.Tensor, H: int, W: int):
     """The four bilinear taps of each point: (flat texel index, weight) pairs,
     weights zeroed for taps outside the plane (zeros padding). grid `[N, M, 2]`
-    plane-space xy in [-1, 1] (align_corners=False)."""
+    plane-space xy in [-1, 1] (align_corners=False).
+
+    Non-finite coordinates are decided before any cast, as the kernels decide
+    them: a point with a NaN in x or y takes the plane's texels (0..1, 0..1)
+    with NaN weights, so that its samples are NaN and its transpose adds
+    NaN·cot there; a point with ±inf (and no NaN), or more than 1e8 texels
+    off the plane, has no taps: it samples 0 and adds nothing."""
     gx = (grid[..., 0].float() + 1.0) * (W * 0.5) - 0.5
     gy = (grid[..., 1].float() + 1.0) * (H * 0.5) - 0.5
     x0f, y0f = torch.floor(gx), torch.floor(gy)
     wx, wy = gx - x0f, gy - y0f
-    x0, y0 = x0f.long(), y0f.long()
+    nan = torch.isnan(gx) | torch.isnan(gy)
+    off = torch.isinf(gx) | torch.isinf(gy) | (x0f.abs() >= 1e8) | (y0f.abs() >= 1e8)
+    x0 = torch.where(nan, 0.0, torch.where(off, -2.0, x0f)).long()
+    y0 = torch.where(nan, 0.0, torch.where(off, -2.0, y0f)).long()
     out = []
     for dy, dx, w in ((0, 0, (1 - wx) * (1 - wy)), (0, 1, wx * (1 - wy)),
                       (1, 0, (1 - wx) * wy), (1, 1, wx * wy)):
         yi, xi = y0 + dy, x0 + dx
         valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-        out.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), w * valid))
+        out.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), torch.where(valid, w, 0.0)))
     return out
 
 
@@ -197,7 +212,9 @@ def windowed_sample_transpose(grid: torch.Tensor, cot: torch.Tensor, planes_shap
     grid `[N, R, S, 2]`, cot `[N, R, S, C]` -> float32 `[N, H, W, C]`. The
     kernel adds each tap's share of four channels with one 16-byte float32
     vector atomic, so the order of the sums (and the last bits) changes from
-    run to run."""
+    run to run. A point with a NaN coordinate adds NaN·cot to texels (0..1,
+    0..1) of its own plane, the texels its forward reads; a point at ±inf
+    adds nothing (`_taps`)."""
     N, H, W, C = (int(s) for s in planes_shape)
     _check_shapes((N, H, W, C), grid)
     _check(tuple(cot.shape) == (*grid.shape[:-1], C), "cot must be [N, R, S, C] like the output")

@@ -1,6 +1,24 @@
-"""Small shared helpers (padding/scaling parsers, device resolution)."""
+"""Small shared helpers (shape checks, padding/scaling parsers, device
+resolution)."""
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
+
+
+def assert_shape(x, ref_shape: Sequence[Optional[int]]) -> None:
+    """Raise `AssertionError` unless `x.shape` matches `ref_shape`, where a
+    `None` entry matches any size (counterpart of
+    `invertavatar_tpu/utils/misc.py:assert_shape`, with its messages). It
+    compares Python ints only: no tensor op and no device sync, and unlike
+    a bare `assert` it also runs under `python -O`."""
+    shape = tuple(x.shape)
+    if len(shape) != len(ref_shape):
+        raise AssertionError(f"Wrong number of dimensions: got {len(shape)}, "
+                             f"expected {len(ref_shape)}")
+    for idx, (size, ref_size) in enumerate(zip(shape, ref_shape)):
+        if ref_size is not None and size != ref_size:
+            raise AssertionError(f"Wrong size for dimension {idx}: got {size}, expected {ref_size}")
 
 
 def parse_scaling(scaling) -> tuple:
