@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..render.rasterizer import interpolate_attributes, rasterize
+from ..utils import trace
 from ..utils.misc import resolve_device
 from .model import FaceVerseAssets, FaceVerseModel, load_faceverse_assets
 
@@ -109,12 +110,16 @@ class FaceverseManager:
         transformed = transformed * self._flip_z
         out = rasterize(transformed, self.tri, height=h, width=w, window=window,
                         faces_per_tile=1024, cull_backfaces=False, binning="anchor")
-        rendering = interpolate_attributes(out, self.face_attrs)  # [h, w, 4] = (u, v, mask, vis)
-        rendering = rendering * (rendering[..., 3:4] * rendering[..., 2:3])
-        # binarise the mask channel
-        uvcoords = torch.cat([rendering[..., :2], (rendering[..., 2:3] >= 0.5).float()], dim=-1)
+        with trace.span("uvimage"):
+            # [h, w, 4] = (u, v, mask, vis)
+            rendering = interpolate_attributes(out, self.face_attrs)
+            rendering = rendering * (rendering[..., 3:4] * rendering[..., 2:3])
+            # binarise the mask channel
+            uvcoords = torch.cat([rendering[..., :2], (rendering[..., 2:3] >= 0.5).float()],
+                                 dim=-1)
         return uvcoords[None]  # [1, h, w, 3]
 
+    @trace.spanned("faceverse")
     def make_driven_rendering(self, drive_coeff, base_drive_coeff=None) -> torch.Tensor:
         """One frame's driving signal -> `uvcoords_image` [1, 256, 256, 3] on
         the manager's device. With `base_drive_coeff`, the expression moves by

@@ -19,6 +19,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils import trace
 from ..utils.misc import resolve_device
 
 # z-score constants of the reference (networks.py:41-44)
@@ -92,6 +93,7 @@ class LPIPS(nn.Module):
                 feats.append(_normalize_activation(x))
         return feats
 
+    @trace.spanned("lpips")
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         fx = self.features((x - self.mean) / self.std)
         fy = self.features((y - self.mean) / self.std)

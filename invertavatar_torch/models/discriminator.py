@@ -32,6 +32,7 @@ import torch.nn as nn
 from ..ops.resize import resize_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter
 from ..parallel.mesh import batch_rand, gather_rows, local_rows
+from ..utils import trace
 from ..utils.misc import assert_shape, resolve_device
 from .layers import Conv2dLayer, FullyConnectedLayer
 from .mapping import MappingNetwork
@@ -213,6 +214,7 @@ class _DiscriminatorCore(nn.Module):
                                         architecture=architecture, conv_clamp=conv_clamp,
                                         mbstd_group_size=mbstd_group_size)
 
+    @trace.spanned("discriminator")
     def _score(self, img: torch.Tensor, c: Optional[torch.Tensor],
                force_fp32: bool = False) -> torch.Tensor:
         x = None

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils import trace
 from .irse import Conv2d, IRSETrunk
 from .unet_encoders import UNET_TAPS, DoubleConv, _cond_head, _final_head, _fit_res, pixel_shuffle
 
@@ -196,6 +197,7 @@ class TriPlanefeatSegformerDecoder(_SegformerBase):
         self.outconv2 = Conv2d(256, oc[2], 1, padding=0)
         self.outconv3 = Conv2d(96, oc[3], 1, padding=0)
 
+    @trace.spanned("texture_unet")
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         _, t32, t64, t128 = self.decode(x)
         return [self.outconv0(t32), self.outconv1(t32), self.outconv2(t64), self.outconv3(t128)]
@@ -221,6 +223,7 @@ class TriPlaneSFTfeatSegformerDecoder(_SegformerBase):
     def _heads(self, r: int, tp: torch.Tensor):
         return getattr(self, f"condition_scale{r}")(tp), getattr(self, f"condition_shift{r}")(tp)
 
+    @trace.spanned("triplane_unet")
     def forward(self, x: torch.Tensor) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
         feats = self.decode(x)
         cond = {r: self._heads(r, tp) for r, tp in zip((16, 32, 64, 128), feats)}

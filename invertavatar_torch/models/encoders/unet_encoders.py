@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bilinear
+from ...utils import trace
 from .irse import BatchNorm, Conv2d, IRSETrunk, PReLU
 
 UNET_TAPS = (2, 6, 20, 21)  # trunk taps the decoders read (50-layer numbering)
@@ -172,6 +173,7 @@ class TriPlanefeatEncoder(_UNetBase):
         self.outconv2 = Conv2d(256, oc[2], 1, padding=0)
         self.outconv3 = Conv2d(96, oc[3], 1, padding=0)
 
+    @trace.spanned("texture_unet")
     def forward(self, x: torch.Tensor, r_list=None):
         (_, t32, t64, t128), new_r = self.decode(x, r_list)
         return [self.outconv0(t32), self.outconv1(t32), self.outconv2(t64),
@@ -210,6 +212,7 @@ class TriPlaneSFTfeatEncoder(_UNetBase):
     def _heads(self, r: int, tp: torch.Tensor):
         return getattr(self, f"condition_scale{r}")(tp), getattr(self, f"condition_shift{r}")(tp)
 
+    @trace.spanned("triplane_unet")
     def forward(self, x: torch.Tensor, r_list=None):
         feats, new_r = self.decode(x, r_list)
         cond: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {

@@ -33,6 +33,7 @@ import torch.nn as nn
 
 from ...ops.grid_sample import grid_sample
 from ...ops.resize import resize_bilinear
+from ...utils import trace
 from ..triplane import TriPlaneGenerator
 from .e4e import Encoder4Editing
 from .irse import store_weights_in
@@ -122,6 +123,7 @@ class InversionNet(nn.Module):
         self.register_buffer("latent_avg", torch.zeros(1, 512))
         self.register_buffer("black_uv_bg", -torch.ones(1, 3, 256, 256))
 
+    @trace.spanned("encode")
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """e4e W+ codes + latent_avg: x [B, 3, H, W] -> [B, n_styles, 512]."""
         if x.shape[2] > 256:

@@ -43,6 +43,7 @@ from ..render.mouth import fill_mouth
 from ..render.rasterizer import interpolate_attributes, rasterize
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer
+from ..utils import trace
 from ..utils.misc import assert_shape, resolve_device
 from . import superresolution as sr_mod
 from .encoders.styleunet import EncoderResBlock
@@ -112,13 +113,15 @@ class CondSynthesisNetwork(nn.Module):
                 use_fp16=res >= fp16_resolution))
         self.to(device)
 
+    @trace.spanned("stylegan")
     def forward(self, x_in: torch.Tensor, ws: torch.Tensor, noise_mode: str = "random",
                 force_fp32: bool = False, generator: Optional[torch.Generator] = None):
         assert_shape(ws, [None, self.num_ws, self.w_dim])
         ws = ws.float()
         conds, cond_out = [], None
         for block in self.encoder:
-            x_in, cond_out = block(x_in, cond_out)
+            with trace.span(f"stylegan.e{x_in.shape[-1]}"):
+                x_in, cond_out = block(x_in, cond_out)
             conds.append(cond_out)
         conds = conds[::-1]
 
@@ -131,12 +134,13 @@ class CondSynthesisNetwork(nn.Module):
 
         x = img = None
         for index, res in enumerate(self.used):
-            if index in self.fused_levels:
-                inp = conds[0] if index == 0 else torch.cat([x.float(), conds[index]], dim=1)
-                x = self.fusion[str(index)](inp)
-            x, img = getattr(self, f"b{res}")(
-                x, img, ws[:, w_start[res]:w_start[res] + 3], noise_mode=noise_mode,
-                force_fp32=force_fp32, generator=generator)
+            with trace.span(f"stylegan.b{res}"):
+                if index in self.fused_levels:
+                    inp = conds[0] if index == 0 else torch.cat([x.float(), conds[index]], dim=1)
+                    x = self.fusion[str(index)](inp)
+                x, img = getattr(self, f"b{res}")(
+                    x, img, ws[:, w_start[res]:w_start[res] + 3], noise_mode=noise_mode,
+                    force_fp32=force_fp32, generator=generator)
         return img
 
 
@@ -417,18 +421,22 @@ class _OrthoTriPlane(nn.Module):
     def _mapping_c(self, c):
         return c
 
+    @trace.spanned("frame")
     def synthesis(self, ws, c, v, evaluation: bool = False, noise_mode: str = "random",
                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """ws [B, num_ws, w_dim], camera c [B, 25], vertices v -> {"image",
         "image_raw", "image_depth"}."""
         rk = self.rendering_kwargs
-        c = c.float()
         res = self.neural_rendering_resolution
-        ray_o, ray_d = sample_rays(c[:, :16].reshape(-1, 4, 4), c[:, 16:25].reshape(-1, 3, 3),
-                                   res)
         planes, sr_ws = self._build_planes(ws, v, noise_mode, generator)
-        feature_samples, depth_samples, _ = self.renderer(
-            planes, self.decoder, ray_o, ray_d, rk, evaluation=evaluation, generator=generator)
+        with trace.span("volume"):
+            with trace.span("rays"):
+                c = c.float()
+                ray_o, ray_d = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                                           c[:, 16:25].reshape(-1, 3, 3), res)
+            feature_samples, depth_samples, _ = self.renderer(
+                planes, self.decoder, ray_o, ray_d, rk, evaluation=evaluation,
+                generator=generator)
         B = ws.shape[0]
         feature_image = feature_samples.permute(0, 2, 1).reshape(B, -1, res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(B, 1, res, res)
@@ -479,6 +487,7 @@ class LegacyTriPlaneGenerator(_OrthoTriPlane):
                                   **self.common)
         self.to(device)
 
+    @trace.spanned("views", device=True)
     def rasterize_orth(self, v: torch.Tensor, textures: torch.Tensor):
         """Three views -> (renders [B, 3, 32, H, W], alphas [B, 3, 1, H, W])."""
         # the single y-flip chain: front faces need the winding swap
@@ -538,6 +547,7 @@ class Next3DTriPlaneGenerator(_OrthoTriPlane):
     def _mapping_c(self, c):
         return c[:, :25]
 
+    @trace.spanned("views", device=True)
     def rasterize_views(self, v: torch.Tensor, lms: torch.Tensor, textures: torch.Tensor):
         """Four ortho views -> (renders [front, side (left + right), up],
         alphas [front, side, up], each [B, ·, 256, 256], and the 2D landmarks
@@ -545,18 +555,21 @@ class Next3DTriPlaneGenerator(_OrthoTriPlane):
         uv_mask = self.uv_face_mask.expand(v.shape[0], -1, -1, -1)
         renders, alphas, lm2ds = [], [], []
         for view in _VIEWS_DEG:
-            rot = torch.from_numpy(_angle2matrix_np(view)).to(v.device)
-            tv = transform_to_view(v, rot)
-            lm = (lms.float() * _vec([1.0, -1.0, 1.0], lms) @ rot
-                  + _vec(_ORTH_SHIFT, lms)) * _ORTH_SCALE
-            lm2ds.append(lm[..., :2] * _vec([1.0, -1.0], lms))
-            rendering = self._raster(tv, self.faces, self.face_uvcoords).detach()
-            grid = rendering[..., :2]
-            alpha = grid_sample(uv_mask, grid) * rendering[..., 3:4].permute(0, 3, 1, 2)
-            if self.do_fill_mouth:
-                alpha, _ = fill_mouth(alpha)
-            renders.append(grid_sample(textures, grid))
-            alphas.append(alpha)
+            with trace.span("view"):
+                rot = torch.from_numpy(_angle2matrix_np(view)).to(v.device)
+                tv = transform_to_view(v, rot)
+                lm = (lms.float() * _vec([1.0, -1.0, 1.0], lms) @ rot
+                      + _vec(_ORTH_SHIFT, lms)) * _ORTH_SCALE
+                lm2ds.append(lm[..., :2] * _vec([1.0, -1.0], lms))
+                rendering = self._raster(tv, self.faces, self.face_uvcoords).detach()
+                grid = rendering[..., :2]
+                with trace.span("sample"):
+                    alpha = grid_sample(uv_mask, grid) * rendering[..., 3:4].permute(0, 3, 1, 2)
+                if self.do_fill_mouth:
+                    alpha, _ = fill_mouth(alpha)
+                with trace.span("sample"):
+                    renders.append(grid_sample(textures, grid))
+                alphas.append(alpha)
         # the side alpha: the reference ORs alpha_images[1] with itself
         # (next3d_triplane.py:242), reproduced as it is
         alpha_side = (alphas[1] > 0).float()
@@ -575,16 +588,19 @@ class Next3DTriPlaneGenerator(_OrthoTriPlane):
         renders, alphas, lm2ds = self.rasterize_views(v, lms, textures)
 
         front = renders[0]
-        boxes = gen_mouth_mask(lm2ds[0])
-        mouths = self.mouth_backbone.synthesis(crop_resize_boxes(front, boxes, out=64),
-                                               eg3d_ws, **kw)
-        stitched = paste_boxes(front, mouths, boxes)
+        with trace.span("mouth"):
+            boxes = gen_mouth_mask(lm2ds[0])
+            mouths = self.mouth_backbone.synthesis(crop_resize_boxes(front, boxes, out=64),
+                                                   eg3d_ws, **kw)
+            with trace.span("paste"):
+                stitched = paste_boxes(front, mouths, boxes)
         stitched = self.neural_blending.synthesis(stitched, eg3d_ws, **kw)
 
         static_plane = _to_planes(self.backbone.synthesis(eg3d_ws, **kw))
-        plane_stack = torch.stack([stitched.float(), renders[1], renders[2]], dim=1)
-        alpha_stack = torch.stack(alphas, dim=1)  # [B, 3, 1, H, W]
-        blended = plane_stack * alpha_stack + static_plane.float() * (1 - alpha_stack)
+        with trace.span("blend"):
+            plane_stack = torch.stack([stitched.float(), renders[1], renders[2]], dim=1)
+            alpha_stack = torch.stack(alphas, dim=1)  # [B, 3, 1, H, W]
+            blended = plane_stack * alpha_stack + static_plane.float() * (1 - alpha_stack)
         return blended, eg3d_ws
 
     def sample(self, coordinates, z, c, v, truncation_psi=1.0, truncation_cutoff=None,

@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
+from ..utils import trace
 from .synthesis import SynthesisBlock
 
 
@@ -40,6 +41,7 @@ class _SRBase(nn.Module):
     def _needs_resize(self, x: torch.Tensor) -> bool:
         return x.shape[-1] != self.input_resolution
 
+    @trace.spanned("superres")
     def forward(self, rgb, x, ws, noise_mode: str = "random", generator=None):
         """rgb `[B,3,h,w]`, x `[B,C,h,w]`, ws `[B,num_ws,512]` -> `[B,3,R,R]`."""
         ws = ws[:, -1:, :].repeat(1, 3, 1)
@@ -47,8 +49,10 @@ class _SRBase(nn.Module):
             size = (self.input_resolution, self.input_resolution)
             x = resize_bilinear(x, size, antialias=self.sr_antialias)
             rgb = resize_bilinear(rgb, size, antialias=self.sr_antialias)
-        x, rgb = self.block0(x, rgb, ws, noise_mode=noise_mode, generator=generator)
-        x, rgb = self.block1(x, rgb, ws, noise_mode=noise_mode, generator=generator)
+        with trace.span(f"superres.b{self.block0_res}"):
+            x, rgb = self.block0(x, rgb, ws, noise_mode=noise_mode, generator=generator)
+        with trace.span(f"superres.b{self.block1_res}"):
+            x, rgb = self.block1(x, rgb, ws, noise_mode=noise_mode, generator=generator)
         return rgb
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..utils import trace
 from ..utils.misc import assert_shape
 from .layers import SynthesisLayer, ToRGBLayer
 from .mapping import MappingNetwork
@@ -65,26 +66,30 @@ class SynthesisBlock(nn.Module):
 
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].expand(ws.shape[0], -1, -1, -1)
-            x = self.conv1(x, next(w_iter), **layer_kw)
+            with trace.span("conv1"):
+                x = self.conv1(x, next(w_iter), **layer_kw)
         else:
             in_res = self.resolution if self.no_upsample else self.resolution // 2
             assert_shape(x, [None, self.in_channels, in_res, in_res])
-            x = self.conv0(x.to(dtype), next(w_iter), **layer_kw)
-            if condition is not None:
-                # CS-SFT: modulate the second half of the channels
-                half = x.shape[1] // 2
-                scale, shift = condition
-                x_sft = x[:, half:] * scale.to(x.dtype) + shift.to(x.dtype)
-                x = torch.cat([x[:, :half], x_sft], dim=1)
-            x = self.conv1(x, next(w_iter), **layer_kw)
+            with trace.span("conv0"):
+                x = self.conv0(x.to(dtype), next(w_iter), **layer_kw)
+                if condition is not None:
+                    # CS-SFT: modulate the second half of the channels
+                    half = x.shape[1] // 2
+                    scale, shift = condition
+                    x_sft = x[:, half:] * scale.to(x.dtype) + shift.to(x.dtype)
+                    x = torch.cat([x[:, :half], x_sft], dim=1)
+            with trace.span("conv1"):
+                x = self.conv1(x, next(w_iter), **layer_kw)
 
-        if img is not None and not self.no_upsample:
-            in_res = self.resolution // 2
-            assert_shape(img, [None, self.img_channels, in_res, in_res])
-            img = upsample2d(img, self.resample_filter)
+        with trace.span("torgb"):
+            if img is not None and not self.no_upsample:
+                in_res = self.resolution // 2
+                assert_shape(img, [None, self.img_channels, in_res, in_res])
+                img = upsample2d(img, self.resample_filter)
 
-        y = self.torgb(x, next(w_iter)).float()
-        img = img + y if img is not None else y
+            y = self.torgb(x, next(w_iter)).float()
+            img = img + y if img is not None else y
 
         assert x.dtype == dtype
         assert img is None or img.dtype == torch.float32
@@ -115,6 +120,7 @@ class SynthesisNetwork(nn.Module):
                 img_channels=img_channels, conv_clamp=conv_clamp,
                 use_fp16=(res >= fp16_resolution)))
 
+    @trace.spanned("stylegan")
     def forward(self, ws: torch.Tensor, cond_list: Optional[List[torch.Tensor]] = None,
                 return_list: bool = False,
                 feat_conditions: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None,
@@ -140,23 +146,24 @@ class SynthesisNetwork(nn.Module):
         end_layer = (log2 - 2) if len(out_res) == 1 else (int(np.log2(out_res[1])) - 2)
         for index, (res, cur_ws) in enumerate(zip(self.block_resolutions, block_ws)):
             cond_feat = feat_conditions.get(res) if feat_conditions is not None else None
-            x, img = getattr(self, f"b{res}")(x, img, cur_ws, condition=cond_feat,
-                                              force_fp32=force_fp32, noise_mode=noise_mode,
-                                              generator=generator)
-            if index >= start_layer:
-                if return_list:
-                    if index == start_layer:
-                        x_list.append(img)
-                    x_list.append(x)
-                if cond_list is not None:
-                    if index == start_layer:
-                        # face-copy blend into the low-res image tap
-                        c0, a0 = cond_list[0][:, :-1], cond_list[0][:, -1:]
-                        img = c0 * a0 + img * (1 - a0)
-                    if index < end_layer:
-                        cond = cond_list[1 + index - start_layer]
-                        c, a = cond[:, :-1], cond[:, -1:]
-                        x = (c * a + x.float() * (1 - a)).to(x.dtype)
+            with trace.span(f"stylegan.b{res}"):
+                x, img = getattr(self, f"b{res}")(x, img, cur_ws, condition=cond_feat,
+                                                  force_fp32=force_fp32, noise_mode=noise_mode,
+                                                  generator=generator)
+                if index >= start_layer:
+                    if return_list:
+                        if index == start_layer:
+                            x_list.append(img)
+                        x_list.append(x)
+                    if cond_list is not None:
+                        if index == start_layer:
+                            # face-copy blend into the low-res image tap
+                            c0, a0 = cond_list[0][:, :-1], cond_list[0][:, -1:]
+                            img = c0 * a0 + img * (1 - a0)
+                        if index < end_layer:
+                            cond = cond_list[1 + index - start_layer]
+                            c, a = cond[:, :-1], cond[:, -1:]
+                            x = (c * a + x.float() * (1 - a)).to(x.dtype)
         if return_list:
             x_list.append(img)
             return x_list

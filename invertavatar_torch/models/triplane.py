@@ -40,6 +40,7 @@ from ..ops.resize import resize_bilinear
 from ..render.mouth import fill_mouth
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer
+from ..utils import trace
 from . import superresolution as sr_mod
 from .layers import FullyConnectedLayer
 from .synthesis import Generator
@@ -187,6 +188,7 @@ class TriPlaneGenerator(nn.Module):
         """Frame-independent half of the UV warp (per-resolution concat sources)."""
         return self._texture_group_sources(texture_feats, grid_res)
 
+    @trace.spanned("uvwarp", device=True)
     def rasterize(self, texture_feats: List[torch.Tensor], uvcoords_image: torch.Tensor,
                   static_feats: List[torch.Tensor], bbox_256=BBOX_256,
                   static_small: Optional[List[torch.Tensor]] = None,
@@ -197,57 +199,60 @@ class TriPlaneGenerator(nn.Module):
         grid_res = grid.shape[1]
         alpha = uvc[..., 2:3].permute(0, 3, 1, 2)  # [B, 1, H, W]
         full_alpha, mouth_masks = fill_mouth(alpha)
-        upper = mouth_masks.clone()
-        upper[:, :, :87] = 0.0  # upper-mouth mask: zero rows above 87 (256-space)
-        upper_alpha = (alpha + upper).clamp(0.0, 1.0)
+        with trace.span("warp"):
+            upper = mouth_masks.clone()
+            upper[:, :, :87] = 0.0  # upper-mouth mask: zero rows above 87 (256-space)
+            upper_alpha = (alpha + upper).clamp(0.0, 1.0)
 
-        # one warp per resolution over the channel-concat of its levels
-        # (bilinear lookup is channel-independent, so this is exact)
-        by_res: dict = {}
-        for idx, texture in enumerate(texture_feats):
-            by_res.setdefault(texture.shape[-1], []).append(idx)
-        sources = (texture_concat_cache if texture_concat_cache is not None
-                   else self._texture_group_sources(texture_feats, grid_res))
+            # one warp per resolution over the channel-concat of its levels
+            # (bilinear lookup is channel-independent, so this is exact)
+            by_res: dict = {}
+            for idx, texture in enumerate(texture_feats):
+                by_res.setdefault(texture.shape[-1], []).append(idx)
+            sources = (texture_concat_cache if texture_concat_cache is not None
+                       else self._texture_group_sources(texture_feats, grid_res))
 
-        warped_by_idx, alpha_by_res, upper_by_res = {}, {}, {}
-        for res, idxs in by_res.items():
-            key = (res, grid_res)
-            if key not in sources:
-                raise ValueError(f"texture_concat_cache was built for grid_res="
-                                 f"{sorted({k[1] for k in sources})} but is used with uvcoords "
-                                 f"resolution {grid_res}; rebuild it with "
-                                 f"precompute_texture_concat(tex, grid_res={grid_res})")
-            cat = sources[key]
-            assert cat.shape[1] == sum(texture_feats[i].shape[1] for i in idxs), (
-                "texture_concat_cache does not match the texture pyramid")
-            warped = grid_sample(cat, grid)  # [B, ΣC, H, W] float32
-            same = res == grid_res
-            if not same:
-                warped = resize_bilinear(warped, (res, res), antialias=True)
-            off = 0
-            for i in idxs:
-                c = texture_feats[i].shape[1]
-                warped_by_idx[i] = warped[:, off:off + c]
-                off += c
-            alpha_by_res[res] = alpha if same else resize_bilinear(alpha, (res, res))
-            upper_by_res[res] = upper_alpha if same else resize_bilinear(upper_alpha, (res, res))
+            warped_by_idx, alpha_by_res, upper_by_res = {}, {}, {}
+            for res, idxs in by_res.items():
+                key = (res, grid_res)
+                if key not in sources:
+                    raise ValueError(f"texture_concat_cache was built for grid_res="
+                                     f"{sorted({k[1] for k in sources})} but is used with uvcoords "
+                                     f"resolution {grid_res}; rebuild it with "
+                                     f"precompute_texture_concat(tex, grid_res={grid_res})")
+                cat = sources[key]
+                assert cat.shape[1] == sum(texture_feats[i].shape[1] for i in idxs), (
+                    "texture_concat_cache does not match the texture pyramid")
+                warped = grid_sample(cat, grid)  # [B, ΣC, H, W] float32
+                same = res == grid_res
+                if not same:
+                    warped = resize_bilinear(warped, (res, res), antialias=True)
+                off = 0
+                for i in idxs:
+                    c = texture_feats[i].shape[1]
+                    warped_by_idx[i] = warped[:, off:off + c]
+                    off += c
+                alpha_by_res[res] = alpha if same else resize_bilinear(alpha, (res, res))
+                upper_by_res[res] = (upper_alpha if same
+                                     else resize_bilinear(upper_alpha, (res, res)))
 
-        rendering_images = []
-        for idx, texture in enumerate(texture_feats):
-            res = texture.shape[-1]
-            alpha_ = alpha_by_res[res]
-            if static_small is not None:
-                static_feat = static_small[idx]
-            else:
-                b = _bbox(res, bbox_256)
-                crop = static_feats[idx][:, :, b[0]:b[1], b[2]:b[3]]
-                static_feat = resize_bilinear(crop.float(), (res, res), antialias=True)
-            rendering_images.append(torch.cat(
-                [warped_by_idx[idx] * alpha_ + static_feat * (1 - alpha_), upper_by_res[res]],
-                dim=1))
+            rendering_images = []
+            for idx, texture in enumerate(texture_feats):
+                res = texture.shape[-1]
+                alpha_ = alpha_by_res[res]
+                if static_small is not None:
+                    static_feat = static_small[idx]
+                else:
+                    b = _bbox(res, bbox_256)
+                    crop = static_feats[idx][:, :, b[0]:b[1], b[2]:b[3]]
+                    static_feat = resize_bilinear(crop.float(), (res, res), antialias=True)
+                rendering_images.append(torch.cat(
+                    [warped_by_idx[idx] * alpha_ + static_feat * (1 - alpha_), upper_by_res[res]],
+                    dim=1))
         return rendering_images, full_alpha, mouth_masks
 
     # ----------------------------------------------------------- plane blending
+    @trace.spanned("uvwarp", device=True)
     def _blend_planes(self, rendering_stitch, full_alpha, static_plane, bbox_256=BBOX_256):
         """Paste the face-box-resized render/alpha into the frontal plane and
         alpha-blend against the static tri-plane; planes 1 and 2 stay static."""
@@ -278,12 +283,7 @@ class TriPlaneGenerator(nn.Module):
         rk.pop("ray_end", None)
         if rendering_overrides:
             rk.update(rendering_overrides)
-        cam = c[:, -25:].float()
-        cam2world = cam[:, :16].reshape(-1, 4, 4)
-        intrinsics = cam[:, 16:25].reshape(-1, 3, 3)
         res = self.neural_rendering_resolution
-        ray_o, ray_d = sample_rays(cam2world, intrinsics, res)
-
         blended_planes = self._blend_planes(rendering_stitch, full_alpha, static_plane)
         remat = bool(rk.get("remat_stages", False))
 
@@ -291,8 +291,13 @@ class TriPlaneGenerator(nn.Module):
             return self.renderer(planes, self.decoder, ray_o, ray_d, rk, evaluation=evaluation,
                                  generator=generator, decoder_params=decoder_params)[:2]
 
-        feature_samples, depth_samples = _remat(remat, volume, generator, blended_planes,
-                                                ray_o, ray_d, self.decoder.return_params())
+        with trace.span("volume"):
+            with trace.span("rays"):
+                cam = c[:, -25:].float()
+                ray_o, ray_d = sample_rays(cam[:, :16].reshape(-1, 4, 4),
+                                           cam[:, 16:25].reshape(-1, 3, 3), res)
+            feature_samples, depth_samples = _remat(remat, volume, generator, blended_planes,
+                                                    ray_o, ray_d, self.decoder.return_params())
         B = ws.shape[0]
         feature_image = feature_samples.permute(0, 2, 1).reshape(B, -1, res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(B, 1, res, res)
@@ -313,6 +318,7 @@ class TriPlaneGenerator(nn.Module):
         }
 
     # ---------------------------------------------------------------- synthesis
+    @trace.spanned("frame")
     def synthesis(self, ws, c, mesh_condition: Dict[str, torch.Tensor], evaluation: bool = False,
                   noise_mode: str = "random", return_featmap: bool = False,
                   rendering_overrides: Optional[Dict] = None,
@@ -333,6 +339,7 @@ class TriPlaneGenerator(nn.Module):
             out = {k: out[k] for k in ("image", "image_raw", "image_depth")}
         return out
 
+    @trace.spanned("frame")
     def synthesis_withTexture(self, ws, texture_feats: List[torch.Tensor], c,
                               mesh_condition: Dict[str, torch.Tensor],
                               static_feats: Optional[List[torch.Tensor]] = None,
@@ -364,6 +371,7 @@ class TriPlaneGenerator(nn.Module):
                                  _to_planes(static_feats[-1]), evaluation, generator,
                                  rendering_overrides)
 
+    @trace.spanned("frame")
     def synthesis_withCondition(self, ws, c, mesh_condition: Dict[str, torch.Tensor],
                                 texture_feats_conditions: Optional[Dict] = None,
                                 static_feats_conditions: Optional[Dict] = None,

@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import trace
+
 
 def _border_seed(like: torch.Tensor) -> torch.Tensor:
     seed = torch.zeros_like(like, dtype=torch.bool)
@@ -42,11 +44,13 @@ def _flood(free: torch.Tensor, seed: torch.Tensor, n_rounds: int = 4) -> torch.T
     """Flood of `seed` through `free` (both bool, [..., H, W])."""
     state = seed & free
     for _ in range(n_rounds):
-        for dim, rev in ((-2, False), (-2, True), (-1, False), (-1, True)):
-            state = state | _sweep(free, state, free.ndim + dim, rev)
+        with trace.span("flood"):
+            for dim, rev in ((-2, False), (-2, True), (-1, False), (-1, True)):
+                state = state | _sweep(free, state, free.ndim + dim, rev)
     return state
 
 
+@trace.spanned("fill_mouth")
 def fill_mouth(alpha: torch.Tensor, threshold: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fill enclosed zero-regions of a rasterized face alpha `[B, 1, H, W]`.
 
@@ -56,5 +60,6 @@ def fill_mouth(alpha: torch.Tensor, threshold: float = 0.5) -> Tuple[torch.Tenso
     alpha = alpha.float()
     free = alpha < threshold
     outside = _flood(free, _border_seed(free))
-    mouth = (free & ~outside).float()
-    return (alpha + mouth).clamp(0.0, 1.0), mouth
+    with trace.span("fill"):
+        mouth = (free & ~outside).float()
+        return (alpha + mouth).clamp(0.0, 1.0), mouth

@@ -29,6 +29,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import trace
+
 _SENTINEL = 2 ** 31 - 1  # the anchor keys' empty slot (int32 max, as in JAX)
 
 
@@ -110,6 +112,7 @@ def _anchor_binning(tx, ty, fx0, fx1, fy0, fy1, valid_face, th, tw, tile, faces_
     return torch.cat([lists_a, big_idx[None].expand(n_tiles, big_cap)], dim=1)
 
 
+@trace.spanned("raster")
 def rasterize(verts: torch.Tensor, faces: torch.Tensor, height: int = 256, width: int = 256,
               window: Tuple[float, float, float, float] = (-1.0, 1.0, -1.0, 1.0),
               tile: int = 32, faces_per_tile: int = 1024, chunk: int = 256,
@@ -151,76 +154,81 @@ def rasterize(verts: torch.Tensor, faces: torch.Tensor, height: int = 256, width
     off_screen = (tx_max < 0) | (tx_min >= width) | (ty_max < 0) | (ty_min >= height)
     valid_face = valid_face & ~off_screen
 
-    if binning == "anchor":
-        tile_faces = _anchor_binning(tx, ty, fx0, fx1, fy0, fy1, valid_face, th, tw, tile,
-                                     faces_per_tile, big_cap, exact_cover)
-    else:
-        tile_faces = _sort_binning(fx0, fx1, fy0, fy1, valid_face, th, tw, faces_per_tile)
+    with trace.span("raster.bin"):
+        if binning == "anchor":
+            tile_faces = _anchor_binning(tx, ty, fx0, fx1, fy0, fy1, valid_face, th, tw, tile,
+                                         faces_per_tile, big_cap, exact_cover)
+        else:
+            tile_faces = _sort_binning(fx0, fx1, fy0, fy1, valid_face, th, tw, faces_per_tile)
 
     # --- per-tile z-buffer ---------------------------------------------------
-    dev = verts.device
-    lin = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
-    tiles = torch.arange(n_tiles, device=dev)
-    base_y = ((tiles // tw) * tile).float()
-    base_x = ((tiles % tw) * tile).float()
-    pxs = (lin[None, None, :] + base_x[:, None, None]).expand(n_tiles, tile, tile)
-    pys = (lin[None, :, None] + base_y[:, None, None]).expand(n_tiles, tile, tile)
-    pxs, pys = pxs.reshape(n_tiles, -1, 1), pys.reshape(n_tiles, -1, 1)  # [T, P, 1]
+    with trace.span("raster.setup"):
+        dev = verts.device
+        lin = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
+        tiles = torch.arange(n_tiles, device=dev)
+        base_y = ((tiles // tw) * tile).float()
+        base_x = ((tiles % tw) * tile).float()
+        pxs = (lin[None, None, :] + base_x[:, None, None]).expand(n_tiles, tile, tile)
+        pys = (lin[None, :, None] + base_y[:, None, None]).expand(n_tiles, tile, tile)
+        pxs, pys = pxs.reshape(n_tiles, -1, 1), pys.reshape(n_tiles, -1, 1)  # [T, P, 1]
 
-    # affine edge and depth coefficients per candidate face: inside each chunk
-    # the barycentrics and z are px·A + py·B + C
-    t = tri[tile_faces.clamp(min=0)]  # [T, fpt, 3, 3]
-    ok_all = tile_faces >= 0
-    ax, ay, az = t[..., 0, 0], t[..., 0, 1], t[..., 0, 2]
-    bx, by, bz = t[..., 1, 0], t[..., 1, 1], t[..., 1, 2]
-    cx, cy, cz = t[..., 2, 0], t[..., 2, 1], t[..., 2, 2]
-    det = (bx - ax) * (cy - ay) - (cx - ax) * (by - ay)
-    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, torch.zeros_like(det))
-    A1 = (cy - ay) * inv_det
-    B1 = -(cx - ax) * inv_det
-    C1 = -(ax * A1 + ay * B1)
-    A2 = -(by - ay) * inv_det
-    B2 = (bx - ax) * inv_det
-    C2 = -(ax * A2 + ay * B2)
-    e1, e2 = bz - az, cz - az
-    Az = A1 * e1 + A2 * e2
-    Bz = B1 * e1 + B2 * e2
-    Cz = az + C1 * e1 + C2 * e2
+        # affine edge and depth coefficients per candidate face: inside each chunk
+        # the barycentrics and z are px·A + py·B + C
+        t = tri[tile_faces.clamp(min=0)]  # [T, fpt, 3, 3]
+        ok_all = tile_faces >= 0
+        ax, ay, az = t[..., 0, 0], t[..., 0, 1], t[..., 0, 2]
+        bx, by, bz = t[..., 1, 0], t[..., 1, 1], t[..., 1, 2]
+        cx, cy, cz = t[..., 2, 0], t[..., 2, 1], t[..., 2, 2]
+        det = (bx - ax) * (cy - ay) - (cx - ax) * (by - ay)
+        inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, torch.zeros_like(det))
+        A1 = (cy - ay) * inv_det
+        B1 = -(cx - ax) * inv_det
+        C1 = -(ax * A1 + ay * B1)
+        A2 = -(by - ay) * inv_det
+        B2 = (bx - ax) * inv_det
+        C2 = -(ax * A2 + ay * B2)
+        e1, e2 = bz - az, cz - az
+        Az = A1 * e1 + A2 * e2
+        Bz = B1 * e1 + B2 * e2
+        Cz = az + C1 * e1 + C2 * e2
 
-    P = tile * tile
-    zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
-    fbuf = torch.full((n_tiles, P), -1, dtype=torch.long, device=dev)
-    bbuf = torch.zeros((n_tiles, P, 3), device=dev)
-    pos = torch.arange(chunk, device=dev)
+        P = tile * tile
+        zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
+        fbuf = torch.full((n_tiles, P), -1, dtype=torch.long, device=dev)
+        bbuf = torch.zeros((n_tiles, P, 3), device=dev)
+        pos = torch.arange(chunk, device=dev)
     for k in range(faces_per_tile // chunk):
-        s = slice(k * chunk, (k + 1) * chunk)
+        with trace.span("raster.z"):
+            s = slice(k * chunk, (k + 1) * chunk)
 
-        def affine(A, B, C):
-            return pxs * A[:, None, s] + pys * B[:, None, s] + C[:, None, s]  # [T, P, chunk]
+            def affine(A, B, C):
+                return pxs * A[:, None, s] + pys * B[:, None, s] + C[:, None, s]  # [T, P, chunk]
 
-        w1 = affine(A1, B1, C1)
-        w2 = affine(A2, B2, C2)
-        w0 = 1.0 - w1 - w2
-        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & ok_all[:, None, s]
-        z = torch.where(inside, affine(Az, Bz, Cz), float("inf"))
-        zmin = z.amin(dim=2)  # [T, P]
-        # the first face of the chunk reaching zmin
-        first = torch.where(z == zmin[..., None], pos, chunk).amin(dim=2, keepdim=True)
-        first = first.clamp(max=chunk - 1)
-        bary = torch.cat([w0.gather(2, first), w1.gather(2, first), w2.gather(2, first)], dim=2)
-        fsel = tile_faces[:, s].gather(1, first[..., 0])
-        improve = zmin < zbuf
-        zbuf = torch.where(improve, zmin, zbuf)
-        fbuf = torch.where(improve, fsel, fbuf)
-        bbuf = torch.where(improve[..., None], bary, bbuf)
+            w1 = affine(A1, B1, C1)
+            w2 = affine(A2, B2, C2)
+            w0 = 1.0 - w1 - w2
+            inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & ok_all[:, None, s]
+            z = torch.where(inside, affine(Az, Bz, Cz), float("inf"))
+            zmin = z.amin(dim=2)  # [T, P]
+            # the first face of the chunk reaching zmin
+            first = torch.where(z == zmin[..., None], pos, chunk).amin(dim=2, keepdim=True)
+            first = first.clamp(max=chunk - 1)
+            bary = torch.cat([w0.gather(2, first), w1.gather(2, first), w2.gather(2, first)], dim=2)
+            fsel = tile_faces[:, s].gather(1, first[..., 0])
+            improve = zmin < zbuf
+            zbuf = torch.where(improve, zmin, zbuf)
+            fbuf = torch.where(improve, fsel, fbuf)
+            bbuf = torch.where(improve[..., None], bary, bbuf)
 
     def untile(x, *extra):
         x = x.reshape(th, tw, tile, tile, *extra).transpose(1, 2)
         return x.reshape(th * tile, tw * tile, *extra)
 
-    return RasterOut(face_id=untile(fbuf), bary=untile(bbuf, 3), zbuf=untile(zbuf))
+    with trace.span("raster.untile"):
+        return RasterOut(face_id=untile(fbuf), bary=untile(bbuf, 3), zbuf=untile(zbuf))
 
 
+@trace.spanned("raster.interp")
 def interpolate_attributes(out: RasterOut, attributes: torch.Tensor) -> torch.Tensor:
     """Barycentric interpolation of per-face vertex attributes [F, 3, D] plus
     a visibility channel -> [H, W, D + 1] (reference `render_after_rasterize`)."""

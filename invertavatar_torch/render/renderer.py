@@ -40,6 +40,7 @@ from ..ops.plane_sample import (
     sample_planes_windowed,
     sample_planes_windowed_cvjp,
 )
+from ..utils import trace
 from .math_utils import get_ray_limits_box
 from .ray_marcher import mip_ray_march
 
@@ -278,35 +279,38 @@ class ImportanceRenderer:
             return self._march_fused_path(planes, decoder_params, ray_origins, ray_directions,
                                           depths_coarse, options, res, tile_m, n_imp)
 
-        colors_coarse, densities_coarse = run(depths_coarse, structured=True)
+        with trace.span("coarse"):
+            colors_coarse, densities_coarse = run(depths_coarse, structured=True)
         white_back = options.get("white_back", False)
 
         if n_imp > 0:
-            _, _, weights = mip_ray_march(colors_coarse, densities_coarse, depths_coarse,
-                                          white_back=white_back)
-            pooled = options.get("pooled_importance", False) and windowed_ok
-            if pooled:
-                # tile-pooled importance weights: all rays of a tile share fine
-                # depths (an inference option of the JAX package)
-                ts = res // tile
-                T_ = ts * ts
-                w = weights.reshape(B, ts, tile, ts, tile, *weights.shape[2:])
-                w_tile = w.mean(dim=(2, 4))  # [B, ts, ts, S-1, 1]
-                d_tile = depths_coarse.reshape(B, ts, tile, ts, tile, S, 1)[:, :, 0, :, 0]
-                fine_tile = self._sample_importance(
-                    d_tile.reshape(B, T_, S, 1), w_tile.reshape(B, T_, *w_tile.shape[3:]),
-                    n_imp, det=True, generator=generator)  # [B, T, n_imp, 1]
-                depths_fine = fine_tile.reshape(B, ts, 1, ts, 1, n_imp, 1).expand(
-                    B, ts, tile, ts, tile, n_imp, 1).reshape(B, R, n_imp, 1)
-            else:
-                depths_fine = self._sample_importance(depths_coarse, weights, n_imp,
-                                                      det=evaluation, generator=generator)
-            colors_fine, densities_fine = run(depths_fine, structured=pooled)
-            all_depths, all_colors, all_densities = self._unify_samples(
-                depths_coarse, colors_coarse, densities_coarse,
-                depths_fine, colors_fine, densities_fine)
-            rgb, depth, weights = mip_ray_march(all_colors, all_densities, all_depths,
-                                                white_back=white_back)
+            with trace.span("importance"):
+                _, _, weights = mip_ray_march(colors_coarse, densities_coarse, depths_coarse,
+                                              white_back=white_back)
+                pooled = options.get("pooled_importance", False) and windowed_ok
+                if pooled:
+                    # tile-pooled importance weights: all rays of a tile share
+                    # fine depths (an inference option of the JAX package)
+                    ts = res // tile
+                    T_ = ts * ts
+                    w = weights.reshape(B, ts, tile, ts, tile, *weights.shape[2:])
+                    w_tile = w.mean(dim=(2, 4))  # [B, ts, ts, S-1, 1]
+                    d_tile = depths_coarse.reshape(B, ts, tile, ts, tile, S, 1)[:, :, 0, :, 0]
+                    fine_tile = self._sample_importance(
+                        d_tile.reshape(B, T_, S, 1), w_tile.reshape(B, T_, *w_tile.shape[3:]),
+                        n_imp, det=True, generator=generator)  # [B, T, n_imp, 1]
+                    depths_fine = fine_tile.reshape(B, ts, 1, ts, 1, n_imp, 1).expand(
+                        B, ts, tile, ts, tile, n_imp, 1).reshape(B, R, n_imp, 1)
+                else:
+                    depths_fine = self._sample_importance(depths_coarse, weights, n_imp,
+                                                          det=evaluation, generator=generator)
+            with trace.span("fine"):
+                colors_fine, densities_fine = run(depths_fine, structured=pooled)
+                all_depths, all_colors, all_densities = self._unify_samples(
+                    depths_coarse, colors_coarse, densities_coarse,
+                    depths_fine, colors_fine, densities_fine)
+                rgb, depth, weights = mip_ray_march(all_colors, all_densities, all_depths,
+                                                    white_back=white_back)
         else:
             rgb, depth, weights = mip_ray_march(colors_coarse, densities_coarse, depths_coarse,
                                                 white_back=white_back)
@@ -346,34 +350,38 @@ class ImportanceRenderer:
 
         rgbs, deps, wsums = [], [], []
         for b in range(B):
-            # one channels-last bf16 copy of the planes feeds both kernels
-            planes_b = planes[b].permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
-            coords_c = (ray_origins[b:b + 1, :, None, :]
-                        + depths_coarse[b:b + 1] * ray_directions[b:b + 1, :, None, :])
-            proj_c = project_onto_planes(box * coords_c.reshape(1, -1, 3), self.picks)
-            proj_c = proj_c.reshape(n_planes, R, S, 2).contiguous()
-            raw = fused_render(planes_b, proj_c, decoder_params, res=res, tile=tile,
-                               return_raw=True)  # [T*S, P, O]
-            sigma = raw[:, :, 0].float().reshape(T, S, -1).permute(0, 2, 1)  # [T, P, S]
-            dm = F.softplus((sigma[..., :-1] + sigma[..., 1:]) * 0.5 - 1.0)
-            alpha = 1.0 - torch.exp(-dm * deltas)
-            trans = torch.cumprod(
-                torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-                dim=-1)[..., :-1]
-            w_tile = (alpha * trans).mean(dim=1)  # [T, S-1]
-            fine_tile = self._sample_importance(
-                d_vec.reshape(1, 1, S, 1).expand(1, T, S, 1), w_tile.reshape(1, T, S - 1, 1),
-                n_imp, det=True).reshape(T, n_imp)
-            # stable merge: coarse first on ties, as _unify_samples
-            d_cat = torch.cat([d_vec[None].expand(T, S), fine_tile], dim=1)
-            d_m, order = torch.sort(d_cat, dim=1, stable=True)
-            is_fine = (order >= S).to(torch.int32)
-            src = torch.where(order >= S, order - S, order).to(torch.int32)
-            coords_m = ro_t[b][:, None, :, :] + d_m[:, :, None, None] * rd_t[b][:, None, :, :]
-            proj_m = project_onto_planes(box * coords_m.reshape(1, -1, 3), self.picks)
-            proj_m = proj_m.reshape(n_planes, T, S + n_imp, -1, 2).contiguous()
-            rgb, dep, ws = fused_merged_march(planes_b, proj_m, is_fine, src, d_m, raw,
-                                              decoder_params, res=res, S=S, tile=tile)
+            with trace.span("coarse"):
+                # one channels-last bf16 copy of the planes feeds both kernels
+                planes_b = planes[b].permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+                coords_c = (ray_origins[b:b + 1, :, None, :]
+                            + depths_coarse[b:b + 1] * ray_directions[b:b + 1, :, None, :])
+                proj_c = project_onto_planes(box * coords_c.reshape(1, -1, 3), self.picks)
+                proj_c = proj_c.reshape(n_planes, R, S, 2).contiguous()
+                raw = fused_render(planes_b, proj_c, decoder_params, res=res, tile=tile,
+                                   return_raw=True)  # [T*S, P, O]
+            with trace.span("importance"):
+                sigma = raw[:, :, 0].float().reshape(T, S, -1).permute(0, 2, 1)  # [T, P, S]
+                dm = F.softplus((sigma[..., :-1] + sigma[..., 1:]) * 0.5 - 1.0)
+                alpha = 1.0 - torch.exp(-dm * deltas)
+                trans = torch.cumprod(
+                    torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
+                    dim=-1)[..., :-1]
+                w_tile = (alpha * trans).mean(dim=1)  # [T, S-1]
+                fine_tile = self._sample_importance(
+                    d_vec.reshape(1, 1, S, 1).expand(1, T, S, 1),
+                    w_tile.reshape(1, T, S - 1, 1), n_imp, det=True).reshape(T, n_imp)
+                # stable merge: coarse first on ties, as _unify_samples
+                d_cat = torch.cat([d_vec[None].expand(T, S), fine_tile], dim=1)
+                d_m, order = torch.sort(d_cat, dim=1, stable=True)
+                is_fine = (order >= S).to(torch.int32)
+                src = torch.where(order >= S, order - S, order).to(torch.int32)
+            with trace.span("fine"):
+                coords_m = (ro_t[b][:, None, :, :]
+                            + d_m[:, :, None, None] * rd_t[b][:, None, :, :])
+                proj_m = project_onto_planes(box * coords_m.reshape(1, -1, 3), self.picks)
+                proj_m = proj_m.reshape(n_planes, T, S + n_imp, -1, 2).contiguous()
+                rgb, dep, ws = fused_merged_march(planes_b, proj_m, is_fine, src, d_m, raw,
+                                                  decoder_params, res=res, S=S, tile=tile)
             rgbs.append(rgb)
             deps.append(dep)
             wsums.append(ws)

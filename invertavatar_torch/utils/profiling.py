@@ -38,60 +38,39 @@ grad-carrying ones on B3 and its transpose (1 warm-up, 2 timed and 1
 traced iteration). Each times untraced iterations on the host clock, then traces
 iterations with `torch.profiler` and prints, per iteration:
   * host ms and the peak memory (untraced) and device busy ms (the sum of kernel times; one
-    stream, so kernels do not overlap) and the device's idle share
-  * for all but `e4e`, each stage (frame: the driving signal, rasterize,
-    face backbone, renderer, super-resolution; absorb and oneshot: encode,
-    the texture and static backbones, the render, both U-Nets;
-    oneshot_train and fewshot_train: those and the discriminator's forwards
-    (fewshot_train: LPIPS too); gan: the
-    generator's and the discriminator's forwards, the backward passes and
-    Adam falling in the rest), and the rest: its window
-    on the device timeline, the device time busy inside it, its device ops
+    stream, so kernels do not overlap), the device's idle share and the
+    blocking host-device synchronisations by span (`utils/trace.py`)
+  * each of the program's spans that ran (`utils/trace.py`; a frame:
+    `faceverse` > `raster`, `frame` > `uvwarp`, `stylegan` > `stylegan.b<res>`,
+    `volume` > `rays` / `coarse` / `importance` / `fine`, `superres` >
+    `superres.b<res>`; absorb and oneshot add `encode`, `texture_unet`,
+    `triplane_unet`; the training paths `discriminator`, fewshot_train
+    `lpips`; the backward passes and Adam fall in "other"): the device time
+    of the ops launched inside it (children included, and its own alone)
+    and their number
   * the device ops with the most device time
 and, last, one JSON line with the same numbers.
 """
 
 from __future__ import annotations
 
-import contextlib
+import bisect
+import collections
 import json
 import time
 from collections import defaultdict
 
 import torch
 
+from . import trace
+
 TRACED_FRAMES = 5
 TIMED_FRAMES = 20
 TOP_OPS = 15
 
 
-@contextlib.contextmanager
-def _stage_scopes(targets):
-    """Wrap each `(stage, object, attribute)` callable in a `record_function`
-    scope (restored after)."""
-
-    def scoped(stage, fn):
-        def wrapped(*a, **k):
-            with torch.profiler.record_function(f"stage:{stage}"):
-                return fn(*a, **k)
-        return wrapped
-
-    saved = []
-    for stage, obj, attr in targets:
-        saved.append((obj, attr, attr in vars(obj), getattr(obj, attr)))
-        setattr(obj, attr, scoped(stage, getattr(obj, attr)))
-    try:
-        yield
-    finally:
-        for obj, attr, own, fn in reversed(saved):
-            if own:
-                setattr(obj, attr, fn)
-            else:
-                delattr(obj, attr)
-
-
 def _frame(dev, online=False):
-    """(iteration, stages, scopes) of the reenactment frame loop, from the
+    """The iteration of the reenactment frame loop, from the
     fixed synthetic `uvcoords_image` or, `online`, from FaceVerse
     coefficients."""
     from ..flagship import example_inputs, flagship_generator, init_flagship
@@ -104,9 +83,6 @@ def _frame(dev, online=False):
         static = G.backbone.synthesis(ws, return_list=True, noise_mode="const")
         cache = G.precompute_raster_static(static)
         tex_cat = G.precompute_texture_concat(tex)
-    targets = [("rasterize", G, "rasterize"), ("render", G, "renderer"),
-               ("face_backbone", G.face_backbone.synthesis, "forward"),
-               ("superresolution", G.superresolution, "forward")]
     drive = lambda: uvc  # noqa: E731
     if online:
         from ..faceverse.synthetic import coeff_trajectory, synthetic_manager
@@ -115,7 +91,6 @@ def _frame(dev, online=False):
         traj = torch.from_numpy(coeff_trajectory(TIMED_FRAMES)).to(dev)
         frames = iter(range(1 << 62))
         drive = lambda: mgr.make_driven_rendering(traj[next(frames) % TIMED_FRAMES])  # noqa: E731
-        targets.insert(0, ("driving", mgr, "make_driven_rendering"))
 
     @torch.inference_mode()
     def frame():
@@ -124,11 +99,11 @@ def _frame(dev, online=False):
                                        raster_static_cache=cache,
                                        texture_concat_cache=tex_cat)["image"]
 
-    return frame, [t[0] for t in targets], _stage_scopes(targets)
+    return frame
 
 
 def _absorb(dev):
-    """(iteration, stages, scopes) of the few-shot absorb: encode and two
+    """The iteration of the few-shot absorb: encode and two
     chunks of T=4 of a synthetic 512² clip through `cli.eval_seq.absorb_clip`."""
     from ..cli.eval_seq import absorb_clip
     from ..faceverse.synthetic import coeff_trajectory, synthetic_manager, synthetic_source_clip
@@ -137,23 +112,16 @@ def _absorb(dev):
     net = fewshot_inversion_net(device=dev)
     mgr, _ = synthetic_manager(n_grid=173, device=dev)
     clip = synthetic_source_clip(mgr, torch.from_numpy(coeff_trajectory(8)).to(dev), 8, seed=13)
-    G, unets = net.generator, net.unet_encoder
-    targets = [("encode", net, "encode"),
-               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
-               ("backbone", G.backbone.synthesis, "forward"),
-               ("render", G, "synthesis_withTexture"),
-               ("texture_unet", unets.texture_unet, "forward"),
-               ("triplane_unet", unets.triplane_unet, "forward")]
 
     @torch.inference_mode()
     def run():
         return absorb_clip(net, *clip, T=4)
 
-    return run, [t[0] for t in targets], _stage_scopes(targets)
+    return run
 
 
 def _oneshot(dev):
-    """(iteration, stages, scopes) of one one-shot inversion of a synthetic
+    """The iteration of one one-shot inversion of a synthetic
     512² frame through `cli.eval_os.invert_source`."""
     from ..cli.eval_os import invert_source
     from ..faceverse.synthetic import coeff_trajectory, synthetic_manager, synthetic_source_clip
@@ -162,20 +130,12 @@ def _oneshot(dev):
     net = oneshot_inversion_net(device=dev)
     mgr, _ = synthetic_manager(n_grid=173, device=dev)
     src = synthetic_source_clip(mgr, torch.from_numpy(coeff_trajectory(1)).to(dev), 1, seed=15)
-    G, unets = net.generator, net.unet_encoder
-    targets = [("encode", net, "encode"),
-               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
-               ("backbone", G.backbone.synthesis, "forward"),
-               ("render", G, "synthesis_withTexture"),
-               ("texture_unet", unets.texture_unet, "forward"),
-               ("triplane_unet", unets.triplane_unet, "forward")]
     image, uv, cam, uvc = src
-    return ((lambda: invert_source(net, image, cam, uv, uvc)), [t[0] for t in targets],
-            _stage_scopes(targets))
+    return lambda: invert_source(net, image, cam, uv, uvc)
 
 
 def _gan(dev, r1=False):
-    """(iteration, stages, scopes) of one GAN step at flagship width, batch
+    """The iteration of one GAN step at flagship width, batch
     4, nrr 64, 48+48 samples, without the lazy regularisations (with `r1`,
     Dmain with the R1 penalty)."""
     import numpy as np
@@ -205,13 +165,11 @@ def _gan(dev, r1=False):
     sched = gan.make_schedules(cfg, 0)
     step = gan.make_gan_train_step(G, D, cfg, 64, do_greg=False, do_dreg=r1)
     gen = torch.Generator(device=dev).manual_seed(0)
-    targets = [("generator", G, "synthesis"), ("discriminator", D, "forward")]
-    return ((lambda: step(g_state, d_state, batch, sched, gen)), [t[0] for t in targets],
-            _stage_scopes(targets))
+    return lambda: step(g_state, d_state, batch, sched, gen)
 
 
 def _e4e(dev):
-    """(iteration, no stages, no scopes) of the e4e training step."""
+    """The iteration of the e4e training step."""
     import numpy as np
 
     from ..flagship import example_inputs, flagship_inversion_net
@@ -231,11 +189,11 @@ def _e4e(dev):
                                    w_discriminator=0.01, raw_l1=1.0, tri=0.001)
     step = make_e4e_grad_programs(net, lambda a, b: (a - b).abs().mean(), None, weights,
                                   fast_igen_target="exact", fast_grad="pallas")
-    return (lambda: step(state, wd_state, batch)), (), contextlib.nullcontext()
+    return lambda: step(state, wd_state, batch)
 
 
 def _oneshot_train(dev):
-    """(iteration, stages, scopes) of two one-shot training steps at phase
+    """The iteration of two one-shot training steps at phase
     19's shape: Ireal (tri U-Net) + Dreal, then Igen (tex U-Net) + Dgen."""
     from ..flagship import oneshot_train_batch, oneshot_train_models
     from ..train import loop_inversion as li
@@ -257,19 +215,11 @@ def _oneshot_train(dev):
             step(states[unet], d_state, batch, phase=i_phase)
             step(states[unet], d_state, batch, phase=d_phase)
 
-    G, unets = net.generator, net.unet_encoder
-    targets = [("encode", net, "encode"),
-               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
-               ("backbone", G.backbone.synthesis, "forward"),
-               ("render", G, "synthesis_withTexture"),
-               ("texture_unet", unets.texture_unet, "forward"),
-               ("triplane_unet", unets.triplane_unet, "forward"),
-               ("discriminator", D, "forward")]
-    return run, [t[0] for t in targets], _stage_scopes(targets)
+    return run
 
 
 def _fewshot_train(dev):
-    """(iteration, stages, scopes) of one few-shot training step at phase
+    """The iteration of one few-shot training step at phase
     21's shape and longest clip: Ireal (tri-plane decoder) + Igen + D, T=18."""
     from ..flagship import fewshot_train_batch, fewshot_train_models
     from ..losses.lpips import LPIPS
@@ -297,16 +247,7 @@ def _fewshot_train(dev):
         step(state, clip, do_igen=True, multiT=True, d_module=D)
         d_step(d_state, clip)
 
-    G, unets = net.generator, net.unet_encoder
-    targets = [("encode", net, "encode"),
-               ("texture_backbone", G.texture_backbone.synthesis, "forward"),
-               ("backbone", G.backbone.synthesis, "forward"),
-               ("render", G, "synthesis_withTexture"),
-               ("texture_unet", unets.texture_unet, "forward"),
-               ("triplane_unet", unets.triplane_unet, "forward"),
-               ("discriminator", D, "forward"),
-               ("lpips", lpips, "forward")]
-    return run, [t[0] for t in targets], _stage_scopes(targets)
+    return run
 
 
 def main(argv=None):
@@ -319,7 +260,7 @@ def main(argv=None):
     paths = {"frame": _frame, "online": lambda d: _frame(d, online=True), "absorb": _absorb,
              "oneshot": _oneshot, "e4e": _e4e, "gan": _gan, "gan_r1": lambda d: _gan(d, True),
              "oneshot_train": _oneshot_train, "fewshot_train": _fewshot_train}
-    run, stage_names, scopes = paths[path](dev)
+    run = paths[path](dev)
     warmup, timed, traced = ((1, 2, 1) if path in ("gan_r1", "oneshot_train", "fewshot_train")
                              else (3, TIMED_FRAMES, TRACED_FRAMES))
     for _ in range(warmup):
@@ -334,54 +275,72 @@ def main(argv=None):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with scopes, torch.profiler.profile(activities=acts) as prof:
+    syncs = collections.Counter(trace.syncs)
+    with torch.profiler.profile(activities=acts) as prof:
         for _ in range(traced):
             run()
         torch.cuda.synchronize()
+    syncs = {k: (v - syncs[k]) / traced for k, v in trace.syncs.items() if v != syncs[k]}
 
     n = traced
-    # Device timeline: kernels, copies and fills (the ctypes-bound kernels too,
-    # which no aten op encloses), and each stage's `record_function` span as
-    # the profiler mirrors it onto the device (first to last kernel of it).
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end, e.name[len("stage:"):])
-                   for e in on_device if e.name.startswith("stage:"))
-    work = [e for e in on_device if not e.name.startswith("stage:")]
-    busy_us, window_us = defaultdict(float), defaultdict(float)
-    count = defaultdict(int)
-    for start, end, stage in spans:
-        window_us[stage] += end - start
-    for e in work:
-        t = e.time_range.start
-        stage = next((st for s0, s1, st in spans if s0 <= t < s1), "other")
-        busy_us[stage] += e.time_range.elapsed_us()
-        count[stage] += 1
-    busy_ms = sum(busy_us.values()) / n / 1e3
+    stages, work = _stages(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / n / 1e3
     idle = max(0.0, 1 - busy_ms / host_ms)
     card = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}; path {path} (per {path} below)")
     print(f"host ms (untraced, {timed} iterations): {host_ms:.3f}; peak memory "
           f"{peak_gib:.3f} GiB (the untraced iterations)")
     print(f"device busy ms: {busy_ms:.3f}; device ops: {len(work) / n:.1f}; "
-          f"idle share: {idle:.3f}")
-    stages = {}
-    for stage in (*stage_names, "other") if stage_names else ():
-        stages[stage] = {"window_ms": window_us[stage] / n / 1e3,
-                         "busy_ms": busy_us[stage] / n / 1e3, "ops": count[stage] / n}
-        print(f"  stage {stage:16s} device window {stages[stage]['window_ms']:8.3f} ms, "
-              f"busy {stages[stage]['busy_ms']:8.3f} ms, {stages[stage]['ops']:6.1f} ops")
+          f"idle share: {idle:.3f}; host syncs: {sum(syncs.values()):.1f} {syncs}")
+    for name, st in stages.items():
+        for k in st:
+            st[k] /= n * (1e3 if k != "ops" else 1)
+        print(f"  span {name:16s} busy {st['busy_ms']:8.3f} ms (self {st['self_ms']:8.3f}), "
+              f"{st['ops']:6.1f} ops")
     ops = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0 and not e.key.startswith("stage:")),
+                  if e.self_device_time_total > 0 and not e.key.startswith(trace.PREFIX)),
                  key=lambda e: e.self_device_time_total, reverse=True)[:TOP_OPS]
     print("top device ops (ms, calls):")
     for e in ops:
         print(f"  {e.self_device_time_total / n / 1e3:8.3f}  {e.count / n:6.1f}  {e.key[:100]}")
     print(json.dumps({
         "card": card, "path": path, "host_ms": host_ms, "peak_gib": peak_gib,
-        "device_busy_ms": busy_ms,
-        "idle_share": idle, "device_ops": len(work) / n, "stages": stages,
+        "device_busy_ms": busy_ms, "idle_share": idle, "device_ops": len(work) / n,
+        "host_syncs": syncs, "stages": stages,
         "top_ops_ms": {e.key[:100]: e.self_device_time_total / n / 1e3 for e in ops},
     }))
+
+
+def _stages(prof):
+    """({span name: busy_ms, self_ms, ops}, device ops) over the traced
+    iterations (microseconds until `main` divides). The device ops are the
+    kernels, copies and fills (the ctypes-bound kernels too). The profiler
+    files each under the host op that launched it (`FunctionEvent.kernels`,
+    through the launch's correlation id); it is charged to the program's
+    spans around that op: to every one of them (`busy_ms`, `ops`) and to the
+    innermost one alone (`self_ms`); "other" holds the ops launched outside
+    every span (the backward passes, the optimiser). Names in the order
+    they first ran."""
+    events = list(prof.events())
+    cpu = torch.autograd.DeviceType.CPU
+    work = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(trace.PREFIX)]
+    stages = defaultdict(lambda: {"busy_ms": 0.0, "self_ms": 0.0, "ops": 0})
+    stages["other"]
+    for e in sorted((e for e in events if e.device_type == cpu and e.kernels),
+                    key=lambda e: e.time_range.start):
+        parent, names = e, []
+        while parent is not None:
+            if parent.name.startswith(trace.PREFIX):
+                names.append(parent.name[len(trace.PREFIX):])
+            parent = parent.cpu_parent
+        for k in e.kernels:
+            for name in dict.fromkeys(names or ["other"]):
+                stages[name]["busy_ms"] += k.duration
+                stages[name]["ops"] += 1
+            stages[names[0] if names else "other"]["self_ms"] += k.duration
+    other = stages.pop("other")
+    return dict(stages, other=other), work
 
 
 if __name__ == "__main__":
