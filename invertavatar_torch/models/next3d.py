@@ -296,16 +296,37 @@ def _angle2matrix_np(deg: Sequence[float]) -> np.ndarray:
     )
 
 
-def _vec(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+_VIEW_CONSTANTS: Dict[torch.device, Dict[str, Any]] = {}
+
+
+def view_constants(device: torch.device) -> Dict[str, Any]:
+    """The views' float32 rotations ("views", "legacy_views": one [3, 3]
+    tensor each) and the screen transforms' constant vectors on `device`,
+    made at the first call for a device: a copy from host memory in every
+    frame would wait for every kernel queued before it."""
+    consts = _VIEW_CONSTANTS.get(device)
+    if consts is None:
+        def put(x):
+            return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+        # plain tensors even when built under inference mode, so that a
+        # graph that records gradients may use them
+        with torch.inference_mode(False):
+            consts = {"views": tuple(put(_angle2matrix_np(d)) for d in _VIEWS_DEG),
+                      "legacy_views": tuple(put(_angle2matrix_np(d)) for d in _LEGACY_VIEWS_DEG),
+                      "flip_y": put([1.0, -1.0, 1.0]), "flip_yz": put([1.0, -1.0, -1.0]),
+                      "shift": put(_ORTH_SHIFT), "depth": put([0.0, 0.0, 10.0])}
+        _VIEW_CONSTANTS[device] = consts
+    return consts
 
 
 def transform_to_view(v: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     """[B, V, 3] vertices -> screen space for one ortho view: pixel x / y grow
     with +x / +y and nearer surfaces have smaller z (all depths positive)."""
-    v = v.float() * _vec([1.0, -1.0, 1.0], v)
-    tv = (v @ rot + _vec(_ORTH_SHIFT, v)) * _ORTH_SCALE
-    return tv * _vec([1.0, -1.0, -1.0], v) + _vec([0.0, 0.0, 10.0], v)
+    k = view_constants(v.device)
+    v = v.float() * k["flip_y"]
+    tv = (v @ rot + k["shift"]) * _ORTH_SCALE
+    return tv * k["flip_yz"] + k["depth"]
 
 
 def gen_mouth_mask(lm2d: torch.Tensor) -> torch.Tensor:
@@ -493,10 +514,10 @@ class LegacyTriPlaneGenerator(_OrthoTriPlane):
         # the single y-flip chain: front faces need the winding swap
         faces = self.faces[:, [0, 2, 1]]
         face_attrs = self.face_uvcoords[:, [0, 2, 1]]
+        k = view_constants(v.device)
         renders, alphas = [], []
-        for view in _LEGACY_VIEWS_DEG:
-            rot = torch.from_numpy(_angle2matrix_np(view)).to(v.device)
-            tv = (v.float() @ rot) * self.orth_scale * _vec([1.0, -1.0, -1.0], v)
+        for rot in k["legacy_views"]:
+            tv = (v.float() @ rot) * self.orth_scale * k["flip_yz"]
             rendering = self._raster(tv, faces, face_attrs).detach()
             alphas.append(rendering[..., 3:4].permute(0, 3, 1, 2))
             renders.append(grid_sample(textures, rendering[..., :2]))
@@ -553,14 +574,13 @@ class Next3DTriPlaneGenerator(_OrthoTriPlane):
         alphas [front, side, up], each [B, ·, 256, 256], and the 2D landmarks
         of each view [4][B, 68, 2])."""
         uv_mask = self.uv_face_mask.expand(v.shape[0], -1, -1, -1)
+        k = view_constants(v.device)
         renders, alphas, lm2ds = [], [], []
-        for view in _VIEWS_DEG:
+        for rot in k["views"]:
             with trace.span("view"):
-                rot = torch.from_numpy(_angle2matrix_np(view)).to(v.device)
                 tv = transform_to_view(v, rot)
-                lm = (lms.float() * _vec([1.0, -1.0, 1.0], lms) @ rot
-                      + _vec(_ORTH_SHIFT, lms)) * _ORTH_SCALE
-                lm2ds.append(lm[..., :2] * _vec([1.0, -1.0], lms))
+                lm = (lms.float() * k["flip_y"] @ rot + k["shift"]) * _ORTH_SCALE
+                lm2ds.append(lm[..., :2] * k["flip_y"][:2])
                 rendering = self._raster(tv, self.faces, self.face_uvcoords).detach()
                 grid = rendering[..., :2]
                 with trace.span("sample"):

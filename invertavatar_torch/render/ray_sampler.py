@@ -2,6 +2,10 @@
 
 Pixel-index homogeneous coordinates through K⁻¹ (intrinsics scaled by the
 render resolution), rotated into world space by cam2world, normalized.
+K⁻¹ is the LU solve of `torch.linalg.inv` without its singularity check:
+that check reads the factorisation's status on the host, which waits for
+every kernel queued before it. A singular K gives non-finite rays, as
+`jnp.linalg.inv` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ def sample_rays(cam2world: torch.Tensor, intrinsics: torch.Tensor, resolution: i
     """Returns (ray_origins [N, R², 3], ray_dirs [N, R², 3]); pixel order row-major."""
     K = intrinsics.float().clone()
     K[:, :2] *= resolution
-    K_inv = torch.linalg.inv(K)
+    K_inv = torch.linalg.inv_ex(K).inverse
 
     xs = torch.arange(resolution, dtype=torch.float32, device=cam2world.device)
     yg, xg = torch.meshgrid(xs, xs, indexing="ij")  # [H, W]

@@ -250,6 +250,93 @@ def test_rasterize_views():
         _close(g, r, atol=1e-5)
 
 
+# The views' rotations and constant vectors as the frame made them before
+# they were made once a device (`tn.view_constants`): copied from host memory
+# at each call. The port's views must give these outputs bit for bit.
+
+
+def _vec_per_call(values, like):
+    return torch.tensor(values, dtype=torch.float32, device=like.device)
+
+
+def _transform_per_call(v, rot):
+    v = v.float() * _vec_per_call([1.0, -1.0, 1.0], v)
+    tv = (v @ rot + _vec_per_call(tn._ORTH_SHIFT, v)) * tn._ORTH_SCALE
+    return tv * _vec_per_call([1.0, -1.0, -1.0], v) + _vec_per_call([0.0, 0.0, 10.0], v)
+
+
+def _views_per_call(G, v, lms, textures):
+    uv_mask = G.uv_face_mask.expand(v.shape[0], -1, -1, -1)
+    renders, alphas, lm2ds = [], [], []
+    for view in tn._VIEWS_DEG:
+        rot = torch.from_numpy(tn._angle2matrix_np(view)).to(v.device)
+        tv = _transform_per_call(v, rot)
+        lm = (lms.float() * _vec_per_call([1.0, -1.0, 1.0], lms) @ rot
+              + _vec_per_call(tn._ORTH_SHIFT, lms)) * tn._ORTH_SCALE
+        lm2ds.append(lm[..., :2] * _vec_per_call([1.0, -1.0], lms))
+        rendering = G._raster(tv, G.faces, G.face_uvcoords).detach()
+        grid = rendering[..., :2]
+        alpha = tn.grid_sample(uv_mask, grid) * rendering[..., 3:4].permute(0, 3, 1, 2)
+        if G.do_fill_mouth:
+            alpha, _ = tn.fill_mouth(alpha)
+        renders.append(tn.grid_sample(textures, grid))
+        alphas.append(alpha)
+    alpha_side = (alphas[1] > 0).float()
+    return ([renders[0], renders[1] + renders[2], renders[3]],
+            [alphas[0], alpha_side, alphas[3]], lm2ds)
+
+
+def _orth_per_call(G, v, textures):
+    faces = G.faces[:, [0, 2, 1]]
+    face_attrs = G.face_uvcoords[:, [0, 2, 1]]
+    renders, alphas = [], []
+    for view in tn._LEGACY_VIEWS_DEG:
+        rot = torch.from_numpy(tn._angle2matrix_np(view)).to(v.device)
+        tv = (v.float() @ rot) * G.orth_scale * _vec_per_call([1.0, -1.0, -1.0], v)
+        rendering = G._raster(tv, faces, face_attrs).detach()
+        alphas.append(rendering[..., 3:4].permute(0, 3, 1, 2))
+        renders.append(tn.grid_sample(textures, rendering[..., :2]))
+    return torch.stack(renders, dim=1), torch.stack(alphas, dim=1)
+
+
+def _flat(x):
+    return [t for item in x for t in (_flat(item) if isinstance(item, (list, tuple)) else [item])]
+
+
+@pytest.mark.parametrize("generator", ["next3d", "legacy"])
+def test_views_bitwise_as_with_per_call_constants(generator):
+    """Two items of the jittered sphere, moved apart: every output of
+    `rasterize_views` (and `transform_to_view` of each view) or
+    `rasterize_orth` equals, bit for bit, what the per-call constants give;
+    the constants are made once for the device."""
+    verts, _, ptopo = _topologies()
+    v = _next3d_vertices(_jittered(verts))
+    v = np.concatenate([v, v * np.float32(0.9) + np.float32(0.02)], axis=0)
+    tex = _nchw(_rand(18, 2, 256, 256, 32))
+    consts = tn.view_constants(torch.device("cpu"))
+    with torch.no_grad():
+        if generator == "next3d":
+            G = tn.Next3DTriPlaneGenerator(topology=ptopo, rendering_kwargs=RK, device="cpu",
+                                           **GEN_KW)
+            n = ptopo.n_verts
+            vt, lms = torch.from_numpy(v[:, :n]), torch.from_numpy(v[:, n:])
+            got, want = G.rasterize_views(vt, lms, tex), _views_per_call(G, vt, lms, tex)
+            for rot, view in zip(consts["views"], tn._VIEWS_DEG):
+                assert torch.equal(rot, torch.from_numpy(tn._angle2matrix_np(view)))
+                assert torch.equal(tn.transform_to_view(vt, rot), _transform_per_call(vt, rot))
+        else:
+            G = tn.LegacyTriPlaneGenerator(topology=ptopo, rendering_kwargs=RK, device="cpu",
+                                           **GEN_KW)
+            vt = torch.from_numpy(v[:, :ptopo.n_verts])
+            got, want = G.rasterize_orth(vt, tex), _orth_per_call(G, vt, tex)
+    got, want = _flat(got), _flat(want)
+    assert len(got) == len(want) == (10 if generator == "next3d" else 2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tn.view_constants(torch.device("cpu")) is consts
+    assert not any("view" in k for k in G.state_dict())
+
+
 @pytest.fixture(scope="module")
 def next3d_pair():
     """The tiny Next3D generator in both packages on the same weights, and

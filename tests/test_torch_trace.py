@@ -6,8 +6,9 @@ profiler the spans nest as the layers do, all carry the `span:` prefix and
 none takes a name the benchmark places itself; a synchronisation is
 counted in the innermost open span; only the layers the benchmark reads on
 the device timeline are mirrored there. The card's own cases (`-m cuda`)
-check that CUDA's sync debug mode sees the blocking copies and that a host
-span leaves a mirrored scope around it every kernel."""
+check that CUDA's sync debug mode sees the blocking copies, that each
+cell's frame makes none, and that a host span leaves a mirrored scope
+around it every kernel."""
 
 import warnings
 
@@ -17,7 +18,7 @@ import torch
 
 from benchmark.lib import registry
 from benchmark.run import _merge
-from benchmark.tests.tiny import TINY_CONFIG, TINY_MIX
+from benchmark.tests.tiny import CELLS, TINY_CONFIG, TINY_MIX
 from benchmark.traffic.generate import make_inputs
 from invertavatar_torch.utils import trace
 
@@ -52,14 +53,12 @@ ROOTS = {"ani3dgan512-live4": {"faceverse", "frame"}, "next3d-live1": {"frame"}}
 DEVICE_SPANS = {"ani3dgan512-live4": {"uvwarp"}, "next3d-live1": {"views"}}
 
 
-@pytest.fixture(scope="module", params=sorted(TREES))
-def tiny_frame(request):
-    """(cell, step(t)) of the program at the benchmark's tiny sizes, warmed up."""
-    cell = request.param
+def _tiny_step(cell, dev):
+    """step(t) of the program at the benchmark's tiny sizes on `dev`: the
+    cell's driving signal and frame, as the benchmark's loop runs them."""
     wl = registry.workload(cell)
     cfg = _merge(registry.config(wl["config"]), TINY_CONFIG[wl["config"]])
     mix = _merge(registry.traffic(wl["traffic"]), TINY_MIX)
-    dev = torch.device("cpu")
     with torch.inference_mode():
         inputs = make_inputs(mix, cfg, 7, dev)
         build = registry.config_module(wl["config"]).Build("program", cfg, mix, inputs, 7, dev)
@@ -70,8 +69,15 @@ def tiny_frame(request):
     def step(t):
         return build.frame(avatar, rows, t, build.drive(t))
 
+    return step
+
+
+@pytest.fixture(scope="module", params=sorted(TREES))
+def tiny_frame(request):
+    """(cell, step(t)) of the program at the benchmark's tiny sizes, warmed up."""
+    step = _tiny_step(request.param, torch.device("cpu"))
     step(0)
-    return cell, step
+    return request.param, step
 
 
 def _spans(prof):
@@ -194,3 +200,29 @@ def test_a_host_span_leaves_the_mirrored_scope_around_it_its_kernels():
     outer = mirrors["span:outer"].time_range
     assert all(outer.start <= k.time_range.start < outer.end for k in kernels)
     assert y.sum().item() == 3 * (1 << 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_frame_on_the_card_makes_no_host_sync(cell):
+    """A warmed-up step of each cell's program (FaceVerse driving and
+    `TriPlaneGenerator.synthesis_withTexture` with the raster caches, or a
+    Next3D `synthesis`) runs under CUDA's sync debug mode at "error" without
+    raising, and counts no synchronisation in its spans while traced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    step = _tiny_step(cell, torch.device("cuda"))
+    step(0)  # kernel builds, library handles and the allocator's first blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    before = dict(trace.syncs)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        step(2)
+        torch.cuda.synchronize()  # every kernel's record inside the trace that launched it
+    assert dict(trace.syncs) == before
+    assert out["image"].isfinite().all()
