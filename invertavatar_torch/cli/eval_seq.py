@@ -26,6 +26,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 @torch.no_grad()
 def build_avatar(net, first_image: torch.Tensor) -> Dict:
@@ -49,6 +51,7 @@ def e4e_render_caches(net, avatar: Dict, T: int):
 
 
 @torch.no_grad()
+@trace.spanned("absorb.chunk")
 def absorb_chunk(net, avatar: Dict, images: torch.Tensor, uvs: torch.Tensor, cs: torch.Tensor,
                  uvcoords: torch.Tensor, r_list: Optional[List] = None, render_caches=None):
     """Refine `avatar` with a chunk of T source frames: images [T, 3, H, W],
@@ -67,14 +70,17 @@ def absorb_clip(net, images: torch.Tensor, uvs: torch.Tensor, cs: torch.Tensor,
     """The avatar of a source clip (`absorb_chunk`'s shapes, n frames): the
     e4e avatar of its first frame refined by its chunks of T frames (a tail
     shorter than T is left out), the first chunk's render from the e4e
-    render caches. Returns (avatar, the GRU states)."""
-    avatar = build_avatar(net, images[0:1])
-    caches = e4e_render_caches(net, avatar, T)
-    r_list = None
-    for start in range(0, images.shape[0] - T + 1, T):
-        s = slice(start, start + T)
-        avatar, r_list = absorb_chunk(net, avatar, images[s], uvs[s], cs[s], uvcoords[s], r_list,
-                                      render_caches=caches if start == 0 else None)
+    render caches. Returns (avatar, the GRU states). The whole absorb is one
+    span, `absorb`, so that the tracer counts every host synchronisation
+    inside it."""
+    with trace.span("absorb"):
+        avatar = build_avatar(net, images[0:1])
+        caches = e4e_render_caches(net, avatar, T)
+        r_list = None
+        for start in range(0, images.shape[0] - T + 1, T):
+            s = slice(start, start + T)
+            avatar, r_list = absorb_chunk(net, avatar, images[s], uvs[s], cs[s], uvcoords[s],
+                                          r_list, render_caches=caches if start == 0 else None)
     return avatar, r_list
 
 

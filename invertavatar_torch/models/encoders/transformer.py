@@ -197,7 +197,7 @@ class TriPlanefeatSegformerDecoder(_SegformerBase):
         self.outconv2 = Conv2d(256, oc[2], 1, padding=0)
         self.outconv3 = Conv2d(96, oc[3], 1, padding=0)
 
-    @trace.spanned("texture_unet")
+    @trace.spanned("texture_unet", device=True)
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         _, t32, t64, t128 = self.decode(x)
         return [self.outconv0(t32), self.outconv1(t32), self.outconv2(t64), self.outconv3(t128)]
@@ -223,7 +223,7 @@ class TriPlaneSFTfeatSegformerDecoder(_SegformerBase):
     def _heads(self, r: int, tp: torch.Tensor):
         return getattr(self, f"condition_scale{r}")(tp), getattr(self, f"condition_shift{r}")(tp)
 
-    @trace.spanned("triplane_unet")
+    @trace.spanned("triplane_unet", device=True)
     def forward(self, x: torch.Tensor) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
         feats = self.decode(x)
         cond = {r: self._heads(r, tp) for r, tp in zip((16, 32, 64, 128), feats)}

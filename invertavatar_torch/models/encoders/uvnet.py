@@ -123,7 +123,7 @@ class InversionNet(nn.Module):
         self.register_buffer("latent_avg", torch.zeros(1, 512))
         self.register_buffer("black_uv_bg", -torch.ones(1, 3, 256, 256))
 
-    @trace.spanned("encode")
+    @trace.spanned("encode", device=True)
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """e4e W+ codes + latent_avg: x [B, 3, H, W] -> [B, n_styles, 512]."""
         if x.shape[2] > 256:

@@ -5,7 +5,9 @@ CPU tests): with no profiler the tracer records nothing; under a CPU
 profiler the spans nest as the layers do, all carry the `span:` prefix and
 none takes a name the benchmark places itself; a synchronisation is
 counted in the innermost open span; only the layers the benchmark reads on
-the device timeline are mirrored there. The card's own cases (`-m cuda`)
+the device timeline are mirrored there; the few-shot absorb opens its spans
+in the order of its layers, with the encoder and the U-Nets mirrored on the
+device. The card's own cases (`-m cuda`)
 check that CUDA's sync debug mode sees the blocking copies, that each
 cell's frame makes none, and that a host span leaves a mirrored scope
 around it every kernel."""
@@ -19,6 +21,8 @@ import torch
 from benchmark.lib import registry
 from benchmark.run import _merge
 from benchmark.tests.tiny import CELLS, TINY_CONFIG, TINY_MIX
+from benchmark.tests.tiny_fsinvert import CELL as ABSORB_CELL
+from benchmark.tests.tiny_fsinvert import FS_CONFIG, FS_MIX
 from benchmark.traffic.generate import make_inputs
 from invertavatar_torch.utils import trace
 
@@ -134,6 +138,45 @@ def test_spans_nest_as_the_layers(tiny_frame):
     edges, roots = _edges(spans)
     assert roots == ROOTS[cell]
     assert TREES[cell] <= edges, TREES[cell] - edges
+    assert not trace._open
+
+
+def test_the_absorb_opens_its_spans_in_the_order_of_its_layers():
+    """`absorb_clip` is one root span, `absorb`: the encode of the first
+    frame, then one `absorb.chunk` a chunk, each rendering the chunk
+    (`frame`) before both U-Nets, each U-Net stepping its ConvGRUs (`gru`);
+    the encoder and the U-Nets are mirrored on the device, beside the
+    frame's UV warp."""
+    from invertavatar_torch.cli import eval_seq
+
+    wl = registry.workload(ABSORB_CELL)
+    cfg = _merge(registry.config(wl["config"]), FS_CONFIG)
+    mix = _merge(registry.traffic(wl["traffic"]), FS_MIX)
+    dev = torch.device("cpu")
+    with torch.inference_mode():
+        inputs = make_inputs(mix, cfg, 7, dev)
+        build = registry.config_module(wl["config"]).Build("program", cfg, mix, inputs, 7, dev)
+        clip = build._clip(0)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            eval_seq.absorb_clip(build.net, clip["frames"], clip["uv"], clip["cameras"],
+                                 clip["uvcoords"], build.T)
+    annotations = {e.name for e in prof.events() if e.is_user_annotation}
+    assert annotations == {trace.PREFIX + n for n in ("encode", "texture_unet", "triplane_unet",
+                                                      "uvwarp")}
+    spans = _spans(prof)
+    edges, roots = _edges(spans)
+    assert roots == {"absorb"}
+    assert {("absorb", "encode"), ("absorb", "absorb.chunk"), ("absorb.chunk", "frame"),
+            ("absorb.chunk", "texture_unet"), ("absorb.chunk", "triplane_unet"),
+            ("texture_unet", "gru"), ("triplane_unet", "gru")} <= edges
+    first = {}
+    for _, _, name in spans:
+        first.setdefault(name, len(first))
+    order = ["absorb", "encode", "absorb.chunk", "frame", "texture_unet", "gru", "triplane_unet"]
+    assert sorted(order, key=first.__getitem__) == order
+    n_chunks = build.n // build.T
+    assert sum(n == "absorb.chunk" for _, _, n in spans) == n_chunks
+    assert sum(n == "gru" for _, _, n in spans) == 2 * 4 * n_chunks  # 4 decoder stages a U-Net
     assert not trace._open
 
 
